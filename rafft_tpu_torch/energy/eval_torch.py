@@ -208,31 +208,61 @@ def _ext_stem_v(dp, t, s5, s3, has5, has3):
 # whole pair tables
 # ----------------------------------------------------------------------
 
+def _enclose(pt, is_open, n1):
+    """Innermost enclosing opening of every position of nested pair
+    tables [..., N]: the largest p < i with pt[p] > i, -1 = exterior.
+
+    O(N log N) and O(N) memory per table instead of the [N, N] relation
+    of eval_jax: with depth(i) = openings before i minus closings at or
+    before i, the innermost enclosure of i is the last opening before i
+    whose own depth is depth(i) - 1 (a later opening at that depth would
+    lie inside it).  Openings are sorted by (depth, position); every
+    other position sorts past them and never matches."""
+    N = pt.shape[-1]
+    i64 = torch.int64
+    ii = torch.arange(N, dtype=i64, device=pt.device)
+    is_close = (ii < n1) & (pt >= 0) & (pt < ii)
+    opened = is_open.to(i64).cumsum(-1)
+    depth = opened - is_open.to(i64) - is_close.to(i64).cumsum(-1)
+    stride = N + 1
+    keys = torch.where(is_open, depth * stride + ii, stride * stride)
+    skeys = keys.sort(-1).values
+    target = (depth - 1) * stride + ii
+    hit = (torch.searchsorted(skeys, target) - 1).clamp(min=0)
+    found = skeys.gather(-1, hit) % stride
+    return torch.where(depth > 0, found, -1).to(torch.int32)
+
+
 def _loops(dp, codes, pt, n):
-    """Loop analysis of pair tables [..., N] (codes and pt share leading
-    dims, n has them).  Per-position caches of every opening."""
+    """Loop analysis of nested pair tables [..., N] (codes and pt share
+    leading dims, n has them).  Per-position caches of every opening.
+
+    Every intermediate is [..., N]: no [N, N] relation is built, so the
+    memory is linear in the number of tables whatever their count."""
     N = codes.shape[-1]
     n1 = n[..., None]
     ii = torch.arange(N, dtype=torch.int32, device=codes.device)
     iib = ii.expand(codes.shape)
     is_open = (ii < n1) & (pt > ii)
-
-    # innermost enclosing opening of every position: max p < i with
-    # pt[p] > i (nesting makes that enough), -1 = exterior
-    enc = ((ii[None, :] < ii[:, None]) & is_open[..., None, :]
-           & (pt[..., None, :] > ii[:, None]))
-    enclose = torch.where(enc, ii, -1).amax(-1)
+    enclose = _enclose(pt, is_open, n1)
 
     ptc = pt.clamp(0, N - 1)
     t_stem = _ptype(dp, codes, take(codes, ptc))
     mls = _ml_stem(dp, t_stem, _sget(codes, iib - 1, n1),
                    _sget(codes, ptc + 1, n1))
 
-    # children of opening p: the openings whose innermost enclosure is p
-    chm = is_open[..., None, :] & (enclose[..., None, :] == ii[:, None])
-    branches = chm.sum(-1, dtype=torch.int32)
-    first_child = torch.where(chm, ii, N).amin(-1)
-    mlsum = torch.where(chm, mls[..., None, :], 0).sum(-1, dtype=torch.int32)
+    # children of opening p: the openings whose innermost enclosure is p,
+    # reduced onto p by scatter (exterior children go to a spare slot N)
+    child = is_open & (enclose >= 0)
+    parent = torch.where(child, enclose, N).long()
+    spare = (*codes.shape[:-1], N + 1)
+    zeros = torch.zeros(spare, dtype=torch.int32, device=codes.device)
+    branches = zeros.scatter_add(-1, parent, child.to(torch.int32))[..., :N]
+    mlsum = zeros.scatter_add(-1, parent,
+                              torch.where(child, mls, 0))[..., :N]
+    first_child = torch.full_like(zeros, N).scatter_reduce(
+        -1, parent, torch.where(child, iib, N), "amin",
+        include_self=True)[..., :N]
 
     keys = [_kmer_keys(codes, k) for k in (5, 6, 8)]
     i_o, j_o = iib, ptc

@@ -56,6 +56,9 @@ M_NORM, M_FIRST, M_DONE = 0, 1, 2
 INFE = 1 << 30
 TBIG = 1 << 28
 CLAMP = 1 << 20
+# the longest padded length the port folds; the 2048/4096 buckets are
+# queued in ROADMAP.md
+MAX_N = 1024
 
 
 @dataclass(frozen=True)
@@ -330,26 +333,38 @@ def _candidate_delta(cfg, dp, codes, n, keys, pt, loops, rorder, rpos, ws,
     return delta, unsupported, has, p0
 
 
-def _combo_pt(cfg, pt_parent, rloc, rslot, rpos, chosen_i, chosen_j,
+def _combo_pt(cfg, pt, rloc, rslot, rpos, krow, chosen_i, chosen_j,
               chosen_run, chosen_on):
     """Position-wise construction of combination pair tables, batched.
 
-    pt_parent/rloc/rslot are [..., N], rpos [..., R, N], chosen_* [..., R]
-    candidate picks.  Every position derives its new partner from its
-    region's chosen stem."""
+    pt/rloc/rslot [B,K,N] and rpos [B,K,R,N] are the beam's; krow [B,X]
+    names the parent beam row of each of X combinations and chosen_*
+    [B,X,R] are its candidate picks.  Every position derives its new
+    partner from its region's chosen stem.  Partners are gathered from
+    the beam's rpos directly, never from a [B,X,R,N] copy of it."""
     N, R = cfg.N, cfg.R
-    rc = rslot.clamp(0, R - 1)
-    l = rloc
+    B, X = krow.shape
+    rslot_x = _rows(rslot, krow)
+    rc = rslot_x.clamp(0, R - 1)
+    l = _rows(rloc, krow)
     ci = take(chosen_i, rc)
     cj = take(chosen_j, rc)
     crun = take(chosen_run, rc)
-    con = take(chosen_on, rc) & (rslot >= 0)
+    con = take(chosen_on, rc) & (rslot_x >= 0)
     in5 = con & (l > ci - crun) & (l <= ci)
     in3 = con & (l >= cj) & (l < cj + crun)
-    rflat = rpos.reshape(*rpos.shape[:-2], R * N)
-    part5 = take(rflat, (rc * N + cj + (ci - l)).clamp(0, R * N - 1))
-    part3 = take(rflat, (rc * N + ci - (l - cj)).clamp(0, R * N - 1))
-    return torch.where(in5, part5, torch.where(in3, part3, pt_parent))
+    rflat = rpos.reshape(B, -1)
+    row0 = (krow.long() * R)[..., None]
+
+    def partner(local):
+        lin = (row0 + rc) * N + local.clamp(0, N - 1)
+        return rflat.gather(1, lin.view(B, -1)).view(B, X, N)
+
+    # only lanes that the where() below discards can point outside their
+    # region; clamping the local index keeps their gathers in bounds
+    part5 = partner(cj + (ci - l))
+    part3 = partner(ci - (l - cj))
+    return torch.where(in5, part5, torch.where(in3, part3, _rows(pt, krow)))
 
 
 # ======================================================================
@@ -374,6 +389,10 @@ class FoldEngine:
             raise NotImplementedError(
                 "non-integral pair weights need the FFT correlation path, "
                 "which rafft_tpu_torch does not have yet")
+        if cfg.N > MAX_N:
+            raise NotImplementedError(
+                f"N={cfg.N}: rafft_tpu_torch folds sequences of up to "
+                f"{MAX_N} nt; the 2048/4096 buckets are queued in ROADMAP.md")
         self.cfg = cfg
         self.B = B
         self.device = torch.device(device)
@@ -541,8 +560,7 @@ class FoldEngine:
             selr = torch.arange(R, device=dev) == cr[..., None]
             cflat = lambda f: f.reshape(B, -1).gather(1, ci)[..., None]
             cand_pts = _combo_pt(
-                cfg, _rows(pt, ck), _rows(rloc, ck), _rows(rslot, ck),
-                _rows(rpos, ck),
+                cfg, pt, rloc, rslot, rpos, ck,
                 torch.where(selr, cflat(ws["max_i"]), 0),
                 torch.where(selr, cflat(ws["max_j"]), 0),
                 torch.where(selr, cflat(ws["max_nb"]), 0), selr)
@@ -752,8 +770,7 @@ class FoldEngine:
 
         chi_s, chj_s = pick_s(ws["max_i"]), pick_s(ws["max_j"])
         chr_s, chp0_s = pick_s(ws["max_nb"]), pick_s(p0)
-        new_pt_s = _combo_pt(cfg, _rows(pt, kv_sel), _rows(rloc, kv_sel),
-                             _rows(rslot, kv_sel), _rows(rpos, kv_sel),
+        new_pt_s = _combo_pt(cfg, pt, rloc, rslot, rpos, kv_sel,
                              chi_s, chj_s, chr_s, on_sel)
         par_lab_s = _rows(rorder, kv_sel)
         mlen_s = _rows(mlen, kv_sel)

@@ -21,6 +21,10 @@ from rafft_tpu.energy.params import encode_sequence
 from rafft_tpu_torch.convert import device_params_from_numpy
 from rafft_tpu_torch.energy import eval_torch as ET
 
+# the suite runs in several worker processes at once: one intra-op
+# thread per process keeps torch from oversubscribing the cores
+torch.set_num_threads(1)
+
 N = 128
 JOURNAL = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                        "benchmarks", "artifacts", "beams_100n50.jsonl.gz")

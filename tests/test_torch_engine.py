@@ -10,11 +10,16 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from rafft_tpu.engine import fold_jax as FJ
 from rafft_tpu.engine.fold_cpu import fold as cpu_fold
 from rafft_tpu_torch.convert import state_from_numpy, state_to_numpy
 from rafft_tpu_torch.engine import fold_torch as FT
+
+# the suite runs in several worker processes at once: one intra-op
+# thread per process keeps torch from oversubscribing the cores
+torch.set_num_threads(1)
 
 STEP_KEYS = ("pt", "energy", "active", "rorder", "seen_h1", "seen_h2",
              "seen_cnt", "done", "cplx_dropped", "enum_suspect")
@@ -105,3 +110,12 @@ def test_non_integral_weights_refused():
     with pytest.raises(NotImplementedError):
         FT.FoldEngine(FT.EngineConfig(N=32, K=2, M=8, gc_wei=2.5), B=1,
                       device="cpu")
+
+
+@pytest.mark.parametrize("n", [1025, 4096])
+def test_long_sequences_refused(n):
+    """Past 1024 nt the JAX engine folds at N=2048/4096; the port refuses
+    them, naming the queue that holds that work."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        FT.fold_one("GC" * (n // 2) + "A" * (n % 2), nb_mode=10,
+                    max_stack=2, device="cpu")

@@ -1,0 +1,116 @@
+"""The reference outputs that chip_smoke.py holds the card against.
+
+chip_smoke.py runs where the JAX package is not installed and imports
+nothing of it, so the outputs of the JAX package that it compares with
+are committed in rafft_tpu_torch/testdata/chip_smoke_refs.json:
+
+  fold_one  the README sequence through the sequential CPU parity oracle
+            fold_cpu at max_stack 5 and 20, every trajectory step and
+            the final beam;
+  cli       the reference CLI's stdout (CPU engine) for the README
+            sequence at -ms 20 --traj;
+  oracle    fold_cpu's beams (-n 100 -ms 50) for the journal rows where
+            the committed journal differs from the reference semantics.
+
+Each test recomputes one part from the JAX package and asserts that the
+committed file still holds it.  To write the file anew:
+
+    JAX_PLATFORMS=cpu python tests/test_torch_smoke_refs.py --write
+"""
+
+import contextlib
+import gzip
+import io
+import json
+import os
+import sys
+
+import numpy as np
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from rafft_tpu.cli import fold_cli as JCLI  # noqa: E402
+from rafft_tpu.engine.fold_cpu import fold as cpu_fold  # noqa: E402
+
+REFS = os.path.join(ROOT, "rafft_tpu_torch", "testdata",
+                    "chip_smoke_refs.json")
+JOURNAL = os.path.join(ROOT, "benchmarks", "artifacts",
+                       "beams_100n50.jsonl.gz")
+README_SEQ = ("GGGUUUGCGGUGUAAGUGCAGCCCGUCUUACACCGUGCGGCACAGGCACUAGUACUGAUGU"
+              "CGUAUACAGGGCUUUUGACAU")
+CLI_ARGS = ["-s", README_SEQ, "-ms", "20", "--traj"]
+# unflagged 128-bucket rows whose journal beam is not fold_cpu's
+ORACLE_ROWS = (443, 567, 947, 1262)
+
+
+def _rows(structs):
+    return [[s.str_struct, s.energy] for s in structs]
+
+
+def ref_fold_one(ms):
+    final, traj = cpu_fold(README_SEQ, 100, ms, 1000, 3, 0.0, True, 37.0,
+                           3.0, 2.0, 1.0)
+    return dict(traj=[_rows(s) for s in traj], final=_rows(final))
+
+
+def ref_cli():
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        JCLI.main(CLI_ARGS)
+    return dict(args=CLI_ARGS[2:], stdout=buf.getvalue())
+
+
+def ref_oracle(row):
+    with gzip.open(JOURNAL, "rt") as fh:
+        r = next(json.loads(line) for i, line in enumerate(fh) if i == row)
+    beam = [[s.str_struct, float(np.float32(s.energy))]
+            for s in cpu_fold(r["seq"], nb_mode=100, max_stack=50,
+                              max_branch=1000)]
+    return dict(row=row, name=r["name"], seq=r["seq"], beam=beam)
+
+
+def build():
+    return dict(readme_seq=README_SEQ,
+                fold_one={str(ms): ref_fold_one(ms) for ms in (5, 20)},
+                cli=ref_cli(),
+                oracle=[ref_oracle(i) for i in ORACLE_ROWS])
+
+
+@pytest.fixture(scope="module")
+def committed():
+    with open(REFS) as fh:
+        return json.load(fh)
+
+
+@pytest.mark.parametrize("ms", [5, 20])
+def test_fold_one_refs(committed, ms):
+    assert committed["readme_seq"] == README_SEQ
+    assert committed["fold_one"][str(ms)] == ref_fold_one(ms)
+
+
+def test_cli_refs(committed):
+    assert committed["cli"] == ref_cli()
+
+
+@pytest.mark.parametrize("k", range(len(ORACLE_ROWS)))
+def test_oracle_refs(committed, k):
+    want = ref_oracle(ORACLE_ROWS[k])
+    assert committed["oracle"][k] == want
+    with gzip.open(JOURNAL, "rt") as fh:
+        row = next(json.loads(line) for i, line in enumerate(fh)
+                   if i == ORACLE_ROWS[k])
+    # these rows are committed because the journal is not the reference
+    # semantics there
+    assert not row["flagged"] and row["beam"] != want["beam"]
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] != ["--write"]:
+        raise SystemExit(__doc__)
+    os.makedirs(os.path.dirname(REFS), exist_ok=True)
+    with open(REFS, "w") as fh:
+        json.dump(build(), fh, indent=0)
+        fh.write("\n")
+    print(f"wrote {REFS}")

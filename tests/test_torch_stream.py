@@ -6,8 +6,14 @@ results and swap onto shadow sequences mid-flight; the yielded
 streaming programs take most of a minute to compile on the CPU.)
 """
 
+import torch
+
 from rafft_tpu.engine import fold_jax as FJ
 from rafft_tpu_torch.engine import fold_torch as FT
+
+# the suite runs in several worker processes at once: one intra-op
+# thread per process keeps torch from oversubscribing the cores
+torch.set_num_threads(1)
 
 
 def test_run_stream_matches_jax():

@@ -1,0 +1,130 @@
+"""The port's corpus sweep against the JAX package's, on the CPU.
+
+The reference run is rafft_tpu.parallel.sweep.sweep(..., engine="cpu"):
+every sequence folded by the sequential CPU parity engine through the
+JAX package's own sweep (which imports no JAX on that path).  The port
+folds the same records with its FoldEngine on device="cpu" at the
+bucket's configuration; result dicts, checkpoint rows and beams-journal
+rows must be equal.  The records are the first 6 journal rows, with
+their journal best structure standing in for the true one so that the
+scores are not trivial; nb_mode 20 and max_stack 3 keep the run short.
+"""
+
+import dataclasses
+import gzip
+import json
+import os
+
+import pytest
+import torch
+
+from rafft_tpu.engine import fold_jax as FJ
+from rafft_tpu.parallel import sweep as JS
+from rafft_tpu_torch.engine import fold_torch as FT
+from rafft_tpu_torch.parallel import sweep as TS
+
+# the suite runs in several worker processes at once: one intra-op
+# thread per process keeps torch from oversubscribing the cores
+torch.set_num_threads(1)
+
+JOURNAL = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                       "benchmarks", "artifacts", "beams_100n50.jsonl.gz")
+ARGS = dict(nb_mode=20, max_stack=3, max_branch=1000, batch=4, workers=2)
+
+
+def _records(count=6):
+    out = []
+    for line in gzip.open(JOURNAL, "rt"):
+        r = json.loads(line)
+        out.append((r["seq"], r["beam"][0][0], r["name"]))
+        if len(out) == count:
+            break
+    return out
+
+
+def _run(fn, tmp_path, tag, **kw):
+    ckpt, beams = tmp_path / f"{tag}.ckpt", tmp_path / f"{tag}.beams"
+    stats = {}
+    res = fn(_records(), checkpoint=str(ckpt), save_beams=str(beams),
+             stats=stats, **ARGS, **kw)
+    read = lambda p: [json.loads(line) for line in open(p)]
+    return res, read(ckpt), read(beams), stats
+
+
+@pytest.fixture(scope="module")
+def cpu_ref(tmp_path_factory):
+    return _run(JS.sweep, tmp_path_factory.mktemp("ref"), "ref", engine="cpu")
+
+
+def _by_name(rows):
+    return sorted(rows, key=lambda r: r["name"])
+
+
+def test_sweep_matches_jax_sweep(cpu_ref, tmp_path):
+    res, ckpt, beams, stats = _run(TS.sweep, tmp_path, "port", device="cpu")
+    want_res, want_ckpt, want_beams, _ = cpu_ref
+    assert res == want_res
+    assert ckpt == want_ckpt
+    assert [r["_bucket"] for r in ckpt] == [128] * 6
+    assert _by_name(beams) == _by_name(want_beams)
+    assert stats["n_fallback"] == 0 and stats["flag_causes"] == {}
+    assert stats["buckets"]["128"]["n"] == 6
+    assert stats["buckets"]["128"]["batch"] == 4
+
+
+def test_sweep_refolds_flagged(cpu_ref, tmp_path, monkeypatch):
+    """With R=2 slots the engine flags r_slots; those folds go to the CPU
+    refold pool and the results still equal the CPU engine's."""
+    real = TS.bucket_config
+    monkeypatch.setattr(TS, "bucket_config", lambda *a: dataclasses.replace(
+        real(*a), R=2))
+    res, ckpt, beams, stats = _run(TS.sweep, tmp_path, "port", device="cpu")
+    want_res, want_ckpt, want_beams, _ = cpu_ref
+    assert stats["n_fallback"] > 0
+    assert stats["flag_causes"].get("r_slots") == stats["n_fallback"]
+    flagged = [r for r in beams if r["flagged"]]
+    assert len(flagged) == stats["n_fallback"]
+    assert all(r["flagged"] & FT.FLAG_RSLOTS for r in flagged)
+    assert res == want_res
+    assert ckpt == want_ckpt
+    strip = lambda rows: _by_name([dict(r, flagged=0) for r in rows])
+    assert strip(beams) == strip(want_beams)
+
+
+@pytest.mark.parametrize("N", [128, 256, 512, 1024])
+def test_bucket_config_matches_jax_sweep(N):
+    nb_mode, max_stack, max_branch = 100, 50, 1000
+    # rafft_tpu/parallel/sweep.py:167-186, as the JAX sweep builds it
+    R = 16 if N <= 512 else 32
+    want = FJ.EngineConfig(N=N, K=max_stack, M=min(nb_mode, 2 * N - 1), R=R,
+                           max_branch=max_branch, V=4096,
+                           W=8 if N <= 128 else 24,
+                           CPLX=512 if N <= 128 else 1024,
+                           S=max(16384, 32 * max_stack))
+    got = TS.bucket_config(N, nb_mode, max_stack, max_branch)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert TS.bucket_batch(16, N) == {128: 16, 256: 16, 512: 8, 1024: 4}[N]
+
+
+def test_long_buckets_refused():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TS.bucket_config(2048, 100, 50, 1000)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TS.sweep(_records(1), buckets=(128, 2048), device="cpu")
+
+
+@pytest.mark.parametrize("n", [1025, 4096])
+def test_long_records_refused(n):
+    """A record that only the JAX sweep's 2048/4096 buckets would hold
+    raises before anything is folded, instead of being left out."""
+    recs = _records(1) + [("GC" * (n // 2) + "A" * (n % 2), ".", "long")]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TS.sweep(recs, device="cpu")
+
+
+def test_records_past_jax_buckets_skipped(tmp_path):
+    """Past 4096 nt the JAX sweep skips a record; so does the port."""
+    recs = [("GC" * 2049, ".", "huge")]
+    beams = tmp_path / "beams.jsonl"
+    assert TS.sweep(recs, save_beams=str(beams), device="cpu") == [None]
+    assert not beams.exists()

@@ -17,6 +17,10 @@ from rafft_tpu_torch.energy.eval_torch import device_params
 from rafft_tpu_torch.engine import wavefront as WT
 from tests.test_wavefront import CFG, DP, W, _Z1, _random_regions, _zrows
 
+# the suite runs in several worker processes at once: one intra-op
+# thread per process keeps torch from oversubscribing the cores
+torch.set_num_threads(1)
+
 DPT = device_params(37.0, CFG.N, "cpu")
 
 
