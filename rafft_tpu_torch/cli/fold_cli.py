@@ -19,8 +19,9 @@ from rafft_tpu_torch.engine.fold_torch import fold_one
 def parse_arguments(argv=None):
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
-    parser.add_argument('--device', required=True,
-                        help="torch device to fold on (cuda, cuda:1, cpu)")
+    parser.add_argument('--device', default="cuda",
+                        help="torch device to fold on (default cuda; "
+                             "cuda:1, cpu)")
     parser.add_argument('--sequence', '-s', help="sequence")
     parser.add_argument('--seq_file', '-sf', help="sequence file")
     parser.add_argument('--n_mode', '-n', type=int, default=100,

@@ -9,7 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rafft_tpu_torch.energy.eval_torch import SCALARS, TABLES, DeviceParams
+from rafft_tpu_torch.energy.eval_torch import (SCALARS, TABLES, DeviceParams,
+                                               param_arrays)
 
 
 def device_params_from_numpy(arrays: dict, temp: float, device) -> DeviceParams:
@@ -17,6 +18,13 @@ def device_params_from_numpy(arrays: dict, temp: float, device) -> DeviceParams:
     (only the tables and scalars the torch path reads are taken)."""
     keep = {k: np.asarray(arrays[k]) for k in TABLES + SCALARS}
     return DeviceParams(keep, temp).to(device)
+
+
+def device_params_from_energy_params(p, max_len: int, device) -> DeviceParams:
+    """DeviceParams from an EnergyParams-shaped object: the port's own
+    `energy.params.get_params(temp)` or the JAX package's, whose numpy
+    tables and special-loop dictionaries carry the same names."""
+    return DeviceParams(param_arrays(p, max_len), p.temperature).to(device)
 
 
 def state_from_numpy(state: dict, device) -> dict:

@@ -19,10 +19,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from rafft_tpu.energy._turner2004 import PAIR_TYPE
-from rafft_tpu.energy.params import EnergyParams, get_params
-
-INT_MISS = int(np.iinfo(np.int32).min)
+from rafft_tpu_torch.energy._turner2004 import PAIR_TYPE
+from rafft_tpu_torch.energy.params import (INT_MISS, EnergyParams,
+                                           dense_special, get_params)
 
 # the tables the fold path reads (eval_jax.DeviceParams minus the
 # TPU-only repackings small_loop / small2d / mm3 / *_items)
@@ -31,18 +30,6 @@ TABLES = ("pair_type", "stack", "hairpin", "bulge", "internal",
           "int11", "int21", "int22", "tetra", "tri", "hexa")
 SCALARS = ("terminal_au", "ml_closing", "ml_intern", "ml_base",
            "ninio_m", "ninio_max")
-
-
-def _dense_special(table: dict, k: int) -> np.ndarray:
-    """dict of k-mer string -> energy  =>  dense base-5 keyed array."""
-    arr = np.full(5 ** k, INT_MISS, dtype=np.int32)
-    code = {c: i for i, c in enumerate("NACGU")}
-    for s, v in table.items():
-        key = 0
-        for ch in s:
-            key = key * 5 + code[ch]
-        arr[key] = v
-    return arr
 
 
 def param_arrays(p: EnergyParams, max_len: int) -> dict:
@@ -56,9 +43,9 @@ def param_arrays(p: EnergyParams, max_len: int) -> dict:
         mm23=p.mismatch_23, mmm=p.mismatch_m, mmext=p.mismatch_ext,
         d5=p.dangle5, d3=p.dangle3,
         int11=p.int11, int21=p.int21, int22=p.int22,
-        tetra=_dense_special(p.tetraloops, 6),
-        tri=_dense_special(p.triloops, 5),
-        hexa=_dense_special(p.hexaloops, 8),
+        tetra=dense_special(p.tetraloops, 6),
+        tri=dense_special(p.triloops, 5),
+        hexa=dense_special(p.hexaloops, 8),
         terminal_au=p.terminal_au, ml_closing=p.ml_closing,
         ml_intern=p.ml_intern, ml_base=p.ml_base, ninio_m=p.ninio_m,
         ninio_max=p.ninio_max)

@@ -32,14 +32,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rafft_tpu.energy.params import encode_sequence
-from rafft_tpu.scan.encode import weight_matrix
-from rafft_tpu.struct import Structure, dot_bracket
+from rafft_tpu_torch.energy.params import encode_sequence
+from rafft_tpu_torch.scan.encode import weight_matrix
+from rafft_tpu_torch.struct import Structure, dot_bracket
 from rafft_tpu_torch.energy.eval_torch import (_ext_stem_v, _hairpin_v,
                                                _int_loop_v, _kmer_keys,
                                                _ml_stem, _ptype, analyze_pt,
                                                device_params, eval_pt, take)
-from rafft_tpu_torch.engine.wavefront import wavefront_tables
+from rafft_tpu_torch.engine.wavefront import small_tables, wavefront_tables
 
 NEG = float(np.float32(-3.0e38))
 MASK32 = 0xFFFFFFFF
@@ -374,7 +374,7 @@ def _combo_pt(cfg, pt, rloc, rslot, rpos, krow, chosen_i, chosen_j,
 class FoldEngine:
     """Batched fold engine for one (config, batch size, device)."""
 
-    def __init__(self, cfg: EngineConfig, B: int, device):
+    def __init__(self, cfg: EngineConfig, B: int, device="cuda"):
         if cfg.V < cfg.K:
             raise ValueError(f"V={cfg.V} must be >= K={cfg.K} (the "
                              "window top-K merge gathers K slots)")
@@ -385,6 +385,9 @@ class FoldEngine:
         if cfg.K > 255:
             # combo indices reach K * 2^20 and must stay below TBIG = 2^28
             raise ValueError(f"K={cfg.K} > 255 breaks the pool tie order")
+        if cfg.min_hp < 0:
+            raise ValueError(f"min_hp={cfg.min_hp} must be >= 0 (the "
+                             "wavefront tables' padding entries assume it)")
         if not _weights_integral(cfg):
             raise NotImplementedError(
                 "non-integral pair weights need the FFT correlation path, "
@@ -398,6 +401,8 @@ class FoldEngine:
         self.device = torch.device(device)
         self.dp = device_params(cfg.temp, cfg.N, self.device)
         self.W = weight_matrix(cfg.gc_wei, cfg.au_wei, cfg.gu_wei)
+        # the kernel's lookup tables, uploaded once (not per step)
+        self.wtabs = small_tables(self.dp, self.W, self.device)
         # Zobrist coefficients: the same draws as fold_jax, so hashes and
         # seen-sets equal the JAX engine's
         rng = np.random.default_rng(0xA5F7)
@@ -523,7 +528,7 @@ class FoldEngine:
         z1row, z2row = self.Z1i[rposc], self.Z2i[rposc]
 
         # ---- correlation + window slide: the wavefront tables
-        tabs = wavefront_tables(cfg, dp, self.W, rcodes, rpos, mlen,
+        tabs = wavefront_tables(cfg, self.wtabs, rcodes, rpos, mlen,
                                 z1row, z2row)
         lagv = torch.arange(2 * N - 1, dtype=i32, device=dev)
         m_ = mlen[..., None]
@@ -976,7 +981,7 @@ class FoldEngine:
 
 def fold_one(sequence, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
              min_nrj=0.0, traj=False, temp=37.0, gc_wei=3.0, au_wei=2.0,
-             gu_wei=1.0, *, device):
+             gu_wei=1.0, *, device="cuda"):
     """Single-sequence API on the batched engine (reference fold()
     signature plus the device to run on)."""
     N = 1 << max(5, int(np.ceil(np.log2(max(8, len(sequence))))))

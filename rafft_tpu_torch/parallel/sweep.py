@@ -15,12 +15,13 @@ ROADMAP.md queues them.
 
 CLI:
   python -m rafft_tpu_torch.parallel.sweep --csv <benchmark.csv> \
-      --out results.csv --device cuda [-n 100 -ms 50] [--limit 200]
+      --out results.csv [--device cuda] [-n 100 -ms 50] [--limit 200]
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
 import json
 import multiprocessing as mp
 import os
@@ -28,14 +29,52 @@ import time
 
 import numpy as np
 
-from rafft_tpu.parallel.sweep import DEFAULT_BUCKETS as JAX_BUCKETS
-from rafft_tpu.parallel.sweep import (FLAG_NAMES, _cpu_refold, bucket_batch,
-                                      bucket_of, load_benchmark_csv,
-                                      write_results_csv)
-from rafft_tpu.scoring import best_of, score_structures
 from rafft_tpu_torch.engine.fold_torch import MAX_N, EngineConfig, FoldEngine
+from rafft_tpu_torch.scoring import best_of, score_structures
 
+# the buckets of rafft_tpu/parallel/sweep.py (no 64 bucket there either)
+JAX_BUCKETS = (128, 256, 512, 1024, 2048, 4096)
 DEFAULT_BUCKETS = tuple(b for b in JAX_BUCKETS if b <= MAX_N)
+
+# engine exactness-flag bits -> cause names (fold_torch.FLAG_*)
+FLAG_NAMES = {1: "v_window", 2: "r_slots", 4: "seen_set", 8: "hash_check",
+              16: "cplx_budget", 32: "step_limit"}
+
+
+def _cpu_refold(task):
+    """Pool worker: re-fold one flagged sequence on the sequential CPU
+    parity engine (bit-exact reference semantics).  Imports the port's
+    fold_cpu only, so a child holds no CUDA state.  Returns the task's
+    index, the beam and the energy evaluator that ran."""
+    i, seq, nb_mode, max_stack, max_branch = task
+    from rafft_tpu_torch.engine import fold_cpu
+    structs = fold_cpu.fold(seq, nb_mode=nb_mode, max_stack=max_stack,
+                            max_branch=max_branch)
+    return (i, [(s.str_struct, s.energy) for s in structs],
+            fold_cpu.EVALUATOR)
+
+
+def load_benchmark_csv(path):
+    """Rows of (seq, true_struct, name)."""
+    out = []
+    with open(path) as fh:
+        for row in csv.reader(fh):
+            if len(row) >= 3:
+                out.append((row[0], row[1], row[2]))
+    return out
+
+
+def bucket_of(n, buckets):
+    for b in buckets:
+        if n <= b:
+            return b
+    return None
+
+
+def bucket_batch(batch, N):
+    """Per-bucket batch size: the engine's working set grows about
+    linearly in N, so long buckets shrink the batch."""
+    return max(1, batch * 256 // max(N, 256))
 
 
 def bucket_config(N, nb_mode, max_stack, max_branch) -> EngineConfig:
@@ -77,15 +116,16 @@ def _result(record, rows, best_of_k):
 def sweep(records, nb_mode=100, max_stack=50, max_branch=1000,
           buckets=DEFAULT_BUCKETS, batch=16, best_of_k=False, progress=None,
           checkpoint=None, save_beams=None, stats=None, workers=None, *,
-          device):
+          device="cuda"):
     """Fold every record on `device`; returns result dicts in input order.
 
     The arguments and outputs are those of rafft_tpu.parallel.sweep.sweep
     (without its mesh and engine choice): save_beams appends one jsonl row
     per folded sequence, checkpoint journals finished buckets and skips
-    them on restart, stats receives per-bucket timings, the fallback count
-    and the flag histogram.  Records longer than the largest bucket are
-    skipped, except those of MAX_N+1 to 4096 nt: the JAX sweep folds them
+    them on restart, stats receives per-bucket timings, the fallback count,
+    the flag histogram and, where folds were refolded on the CPU, the
+    energy evaluator the refold ran (`refold_evaluator`).  Records longer
+    than the largest bucket are skipped, except those of MAX_N+1 to 4096 nt: the JAX sweep folds them
     in its 2048/4096 buckets, so they raise NotImplementedError."""
     for N in buckets:
         bucket_config(N, nb_mode, max_stack, max_branch)   # refuses N > MAX_N
@@ -105,6 +145,7 @@ def sweep(records, nb_mode=100, max_stack=50, max_branch=1000,
     results = [None] * len(records)
     n_fallback = 0
     flag_hist: dict[str, int] = {}
+    evaluators: set[str] = set()
     done_buckets = set()
     if checkpoint and os.path.exists(checkpoint):
         with open(checkpoint) as fh:
@@ -158,7 +199,9 @@ def sweep(records, nb_mode=100, max_stack=50, max_branch=1000,
             # context is inherited
             ctx = mp.get_context("forkserver")
             with ctx.Pool(min(len(pending), workers)) as pool:
-                for i, rows in pool.imap_unordered(_cpu_refold, pending):
+                for i, rows, evaluator in pool.imap_unordered(
+                        _cpu_refold, pending):
+                    evaluators.add(evaluator)
                     finish(i, rows, flag_of[i])
         if beam_fh is not None:
             beam_fh.close()
@@ -182,15 +225,36 @@ def sweep(records, nb_mode=100, max_stack=50, max_branch=1000,
     if stats is not None:
         stats["n_fallback"] = n_fallback
         stats["flag_causes"] = flag_hist
+        if evaluators:
+            stats["refold_evaluator"] = "+".join(sorted(evaluators))
     return results
+
+
+def write_results_csv(results, path, selection="best_nrj"):
+    """The reference's result-CSV schema.
+
+    selection: 'best_nrj' = lowest-energy structure, 'best_of_k' =
+    best-PPV among the saved beam."""
+    with open(path, "w") as fh:
+        fh.write("seq,len_seq,struct,nrj,nbp,pvv,sens,name\n")
+        for r in results:
+            if r is None:
+                continue
+            if selection == "best_of_k" and "struct_bk" in r:
+                r = dict(r, struct=r["struct_bk"], nrj=r["nrj_bk"],
+                         nbp=r["struct_bk"].count("("),
+                         pvv=r["pvv_bk"], sens=r["sens_bk"])
+            fh.write("{seq},{len_seq},{struct},{nrj},{nbp},{pvv},{sens},{name}\n"
+                     .format(**r))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--csv", required=True, help="benchmark csv (seq,true,name)")
     ap.add_argument("--out", required=True, help="output results csv")
-    ap.add_argument("--device", required=True,
-                    help="torch device to fold on (cuda, cuda:1, cpu)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to fold on (default cuda; cuda:1, "
+                         "cpu)")
     ap.add_argument("-n", "--n_mode", type=int, default=100)
     ap.add_argument("-ms", "--max_stack", type=int, default=50)
     ap.add_argument("--max_branch", type=int, default=1000)

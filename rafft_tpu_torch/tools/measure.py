@@ -1,6 +1,6 @@
 """Measure the port's fold path on one CUDA card, layer by layer.
 
-    python -m rafft_tpu_torch.tools.measure [--phases loops,headline,syncs,profile]
+    python -m rafft_tpu_torch.tools.measure [--phases loops,headline,syncs,profile,kernel,walk]
                                             [--passes 5] [--out DIR]
 
 Run it from the root of a checkout: it measures the rafft_tpu_torch
@@ -31,6 +31,21 @@ Phases (each prints lines tagged with its name):
              bound: the profiler slows the host) and over the unprofiled
              wall of the same rows.  Per-bucket key_averages tables go to
              DIR/profile_<N>.txt;
+  kernel   - the wavefront kernel alone, device ms per call (CUDA events
+             around 200 calls that were enqueued while the device was held
+             busy; median and every value of `--passes` such runs) at each
+             bucket's step shape on a seeded layout and on one real step
+             (the inputs of the 4th step of a fold of the bucket's first
+             rows), with the bytes, cells and the bound of those inputs
+             (wavefront_work); the real step's tensors must keep the
+             kernel's layout contract; beside them the time of a zero_()
+             of the seven tables' bytes;
+  walk     - the wavefront kernel on synthetic layouts that separate its
+             costs, device ms per call at the 128, 512 and 1024 shapes:
+             every region empty (stores alone), one region of N/4, N/2 and
+             N-8 positions in an otherwise empty table (the walk's time per
+             position), and 1, 4 or R regions of 8 and 4 of 32 positions in
+             every row (the cost per region);
   swap     - with --against DIR (another checkout): this checkout's
              eval_pt/analyze_pt against DIR's, in one process.  Per call at
              [16, 50, 128]: results equal, device ops (profiler), and ms
@@ -101,17 +116,205 @@ def nested_tables(rng, count, N, nmin, nmax):
     return codes, pts, ns
 
 
-def event_ms(fn, reps):
+def region_layouts(rng, rows, R, N, nmin, nmax):
+    """Engine-valid region layouts: each beam row's unpaired positions of
+    a random sequence of nmin..nmax nt split into up to R ascending
+    regions (rpos N-padded, rcodes 0-padded).  Every 50th row is the
+    step-0 layout (one whole region), row 1 has only empty regions and
+    row 2 a single-position region."""
+    rpos = np.full((rows, R, N), N, np.int32)
+    rcodes = np.zeros((rows, R, N), np.int32)
+    mlen = np.zeros((rows, R), np.int32)
+    for b in range(rows):
+        n = int(rng.integers(nmin, nmax + 1))
+        codes = rng.integers(1, 5, size=n)
+        keep = np.nonzero(rng.random(n) < rng.uniform(0.2, 1.0))[0]
+        nreg = int(rng.integers(1, R + 1))
+        slot = rng.integers(0, nreg, size=len(keep))
+        if b % 50 == 0:
+            keep, slot = np.arange(n), np.zeros(n, np.int64)
+        for r in range(nreg):
+            pos = keep[slot == r]
+            rpos[b, r, : len(pos)] = pos
+            rcodes[b, r, : len(pos)] = codes[pos]
+            mlen[b, r] = len(pos)
+    rpos[1], rcodes[1], mlen[1] = N, 0, 0
+    rpos[2], rcodes[2], mlen[2] = N, 0, 0
+    rpos[2, 0, 0], rcodes[2, 0, 0], mlen[2, 0] = 5, 2, 1
+    return rcodes, rpos, mlen
+
+
+# (N, batch, R, sequence lengths): the fold step's shapes in each bucket
+KERNEL_SHAPES = ((128, 16, 16, (60, 120)), (256, 16, 16, (129, 256)),
+                 (512, 8, 16, (257, 512)), (1024, 4, 32, (513, 780)))
+K_BEAM = 50
+
+# what the bound takes of the card (NVIDIA's H100 SXM data sheet): 3.35
+# TB/s of device memory; 67 TFLOP/s float32 counts a fused multiply-add
+# as two, and the kernel may not fuse (--fmad=false), so 33.5e12 float32
+# operations a second; int32 at half that rate
+MEM_RATE = 3.35e12
+F32_RATE = 33.5e12
+INT_RATE = 16.75e12
+
+
+def kernel_bound(work):
+    """(bound ms, 'bytes' or 'operations', bytes ms, operations ms) of a
+    wavefront_work() count."""
+    b_ms = work["bytes"] / MEM_RATE * 1e3
+    o_ms = (work["f32_ops"] / F32_RATE + work["int_ops"] / INT_RATE) * 1e3
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations", b_ms, o_ms
+
+
+def seeded_kernel_args(N, nb, R, lens, seed, dev):
+    """The wavefront wrapper's five tensors [nb, K_BEAM, R, ...] on a
+    seeded layout, with the engine's Zobrist draws."""
+    z1, z2 = np.random.default_rng(0xA5F7).integers(
+        1, 2**32 - 1, (2, N + 1), dtype=np.uint64).astype(np.uint32).view(np.int32)
+    rc, rp, ml = region_layouts(np.random.default_rng(seed), nb * K_BEAM, R,
+                                N, *lens)
+    rpc = np.clip(rp, 0, N)
+    shape = (nb, K_BEAM)
+    return [torch.as_tensor(x.reshape(shape + x.shape[1:]), device=dev)
+            for x in (rc, rp, ml, z1[rpc], z2[rpc])]
+
+
+def capture_kernel_call(eng, seqs, call_no=4, every=None):
+    """Fold `seqs` on `eng` and return the arguments (tensors cloned) of
+    the call_no-th call of the wavefront wrapper: one real fold step.
+    `every`, if given, is called with the arguments of each call (say
+    wavefront.check_layout, to hold every step to the layout contract)."""
+    from rafft_tpu_torch.engine import fold_torch as FT
+    real, calls, kept = FT.wavefront_tables, [], []
+
+    def spy(*args):
+        calls.append(1)
+        if every is not None:
+            every(*args)
+        if len(calls) == call_no:
+            kept.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                              for a in args))
+        return real(*args)
+
+    FT.wavefront_tables = spy
+    try:
+        for _ in eng.run_stream(seqs):
+            pass
+    finally:
+        FT.wavefront_tables = real
+    if not kept:
+        raise AssertionError(f"the fold took fewer than {call_no} steps")
+    return kept[0]
+
+
+def phase_kernel(rows_all, passes):
+    from rafft_tpu_torch.energy import eval_torch as ET
+    from rafft_tpu_torch.engine import wavefront as WT
+    from rafft_tpu_torch.engine.fold_torch import EngineConfig, weight_matrix
+    dev = torch.device("cuda")
+    W = weight_matrix(3.0, 2.0, 1.0)
+    for N, nb, R, lens in KERNEL_SHAPES:
+        cfg = EngineConfig(N=N, K=K_BEAM, R=R)
+        dp = ET.device_params(cfg.temp, N, dev)
+        tensors = seeded_kernel_args(N, nb, R, lens, 1, dev)
+        seeded = (cfg, WT.small_tables(dp, W, dev), *tensors)
+        eng = _engine(N)
+        rows = bucket_rows(rows_all, N, eng.B)[: eng.B]
+        real = capture_kernel_call(eng, [r["seq"] for r in rows],
+                                   every=WT.check_layout)
+        # what the card takes to store the tables' bytes and nothing else
+        fill = torch.empty(7 * 2 * N * tensors[2].numel(), dtype=torch.int32,
+                           device=dev)
+        log(f"[kernel] N={N}: zero_() of the seven tables' {fill.numel() * 4 / 1e6:.1f} "
+            f"MB: {event_ms(fill.zero_, 200, queued=True):.4f} ms")
+        del fill
+        for what, args in (("seeded", seeded), ("real step", real)):
+            ms = [event_ms(lambda: WT.wavefront_tables(*args), 200, queued=True)
+                  for _ in range(passes)]
+            host = event_ms(lambda: WT.wavefront_tables(*args), 200)
+            work = WT.wavefront_work(args[-3], N)
+            bound, by, _, o_ms = kernel_bound(work)
+            log(f"[kernel] N={N} {tuple(args[-3].shape)} x {N}, {what}: "
+                f"median {_median(ms):.4f} ms/call "
+                f"{[round(x, 4) for x in ms]} of device time ({host:.4f} "
+                f"ms/call when the host's time per call counts); "
+                f"{work['bytes'] / 1e6:.1f} MB, {work['positions']} positions, "
+                f"{work['cells']} cells; bound {bound:.4f} ms by {by} "
+                f"(operations {o_ms:.4f} ms); {bound / _median(ms):.1%} of the "
+                f"bound's rate")
+
+
+def phase_walk():
+    from rafft_tpu_torch.energy import eval_torch as ET
+    from rafft_tpu_torch.engine import wavefront as WT
+    from rafft_tpu_torch.engine.fold_torch import EngineConfig, weight_matrix
+    dev = torch.device("cuda")
+    W = weight_matrix(3.0, 2.0, 1.0)
+    rng = np.random.default_rng(0)
+
+    def one_region(m):
+        return lambda rows, R: [(0, 0, 0, m)]
+
+    def in_every_row(m, per_row):
+        return lambda rows, R: [(slice(None), r, r * m, m)
+                                for r in range(per_row or R)]
+
+    for N, nb, R, _ in KERNEL_SHAPES[::2] + KERNEL_SHAPES[3:]:
+        rows = nb * K_BEAM
+        cfg = EngineConfig(N=N, K=K_BEAM, R=R)
+        tabs = WT.small_tables(ET.device_params(cfg.temp, N, dev), W, dev)
+        z = rng.integers(1, 2**31, (2, N + 1)).astype(np.int32)
+        cases = [("every region empty", lambda rows, R: [])]
+        cases += [(f"one region of {m}", one_region(m))
+                  for m in (N // 4, N // 2, N - 8)]
+        cases += [(f"{per or R} regions of {m} in every row",
+                   in_every_row(m, per))
+                  for m, per in ((8, 1), (8, 4), (8, 0), (32, 4))]
+        for name, regions in cases:
+            rp = np.full((rows, R, N), N, np.int32)
+            rc = np.zeros((rows, R, N), np.int32)
+            ml = np.zeros((rows, R), np.int32)
+            for row, r, start, m in regions(rows, R):
+                rp[row, r, :m] = start + np.arange(m)
+                rc[row, r, :m] = rng.integers(1, 5, m)
+                ml[row, r] = m
+            rpc = np.clip(rp, 0, N)
+            args = (cfg, tabs, *(torch.as_tensor(x, device=dev)
+                                 for x in (rc, rp, ml, z[0][rpc], z[1][rpc])))
+            ms = event_ms(lambda: WT.wavefront_tables(*args), 200, queued=True)
+            log(f"[walk] N={N} {rows} x {R}, {name}: {ms:.4f} ms/call")
+
+
+def event_ms(fn, reps, queued=False):
+    """ms per call between two CUDA events around `reps` calls.  With
+    `queued`, the device is first held busy (torch.cuda._sleep) so that
+    the host enqueues every call before the first one runs: the events
+    then bracket device time alone, not the host's time per call.  For
+    a kernel shorter than its wrapper.  That the host was ahead is
+    checked, not assumed: the first event (recorded behind the sleep)
+    must still be pending when the last call has been enqueued; if it
+    is not, the sleep is doubled and the run repeated, and after five
+    such runs the function raises."""
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    cycles = int(reps * 0.3e-3 * 1.5e9)    # about 0.3 ms per call at 1.5 GHz
+    for _ in range(5 if queued else 1):
+        if queued:
+            torch.cuda._sleep(cycles)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        ahead = not t0.query()
+        t1.record()
+        torch.cuda.synchronize()
+        if ahead or not queued:
+            return t0.elapsed_time(t1) / reps
+        cycles *= 2
+    raise RuntimeError(f"event_ms: the host did not enqueue {reps} calls "
+                       f"within a device sleep of {cycles // 2} cycles, so "
+                       f"the events would hold the host's time per call")
 
 
 # (function, leading dims, N, sequence lengths): eval_pt on the complex
@@ -430,6 +633,10 @@ def main(argv=None):
             phase_syncs(rows)
         elif ph == "profile":
             phase_profile(rows, args.out)
+        elif ph == "kernel":
+            phase_kernel(rows, args.passes)
+        elif ph == "walk":
+            phase_walk()
         elif ph == "swap":
             phase_swap(rows, args.against, args.passes)
         else:

@@ -7,7 +7,8 @@ setup(
                 "(FFT-based folding paths + kinetics)",
     packages=find_packages(include=["rafft_tpu", "rafft_tpu.*",
                                     "rafft_tpu_torch", "rafft_tpu_torch.*"]),
-    package_data={"rafft_tpu_torch": ["csrc/*.cu"]},
+    package_data={"rafft_tpu_torch": ["csrc/*.cu", "native/*.cpp",
+                                      "testdata/*.json"]},
     scripts=["bin/rafft", "bin/rafft_kin"],
     python_requires=">=3.10",
     install_requires=["numpy", "scipy"],

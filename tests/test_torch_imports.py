@@ -25,7 +25,20 @@ res = fold_one("GGGAAACCCAAAGGGAAACCC", nb_mode=8, max_stack=2,
                max_branch=16, device="cpu")
 assert res and res[0].energy < 0, res
 assert wavefront.LAUNCHES == 0
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+from rafft_tpu_torch.engine import fold_cpu
+beam = fold_cpu.fold("GGGAAACCCAAAGGGAAACCC", nb_mode=8, max_stack=2, max_branch=16)
+assert [s.str_struct for s in beam] == [s.str_struct for s in res], beam
+assert fold_cpu.EVALUATOR in ("native", "numpy")
+i, rows, evaluator = sweep._cpu_refold((7, "GGGAAACCCAAAGGGAAACCC", 8, 2, 16))
+assert i == 7 and rows[0][0] == res[0].str_struct and evaluator == fold_cpu.EVALUATOR
+recs = [("GGGAAACCCAAAGGGAAACCC", "((((...))))..........", "a")]
+stats = {}
+out = sweep.sweep(recs, nb_mode=8, max_stack=2, max_branch=16, buckets=(32,),
+                  stats=stats, device="cpu")
+assert out[0]["struct"] == res[0].str_struct and stats["n_fallback"] == 0
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "rafft_tpu"))
+assert not loaded, loaded
 print("OK", res[0].str_struct, res[0].energy)
 """
 
@@ -38,15 +51,28 @@ def test_port_imports_and_folds_without_jax():
     assert out.stdout.startswith("OK ")
 
 
+def _port_sources():
+    yield os.path.join(REPO, "chip_smoke.py")
+    for root, _dirs, files in os.walk(os.path.join(REPO, "rafft_tpu_torch")):
+        for name in files:
+            if name.endswith(".py"):
+                yield os.path.join(root, name)
+
+
 def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py runs where the JAX package is absent: it imports the
-    port and the standard library, never JAX or rafft_tpu itself."""
-    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
-        tree = ast.parse(fh.read())
-    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
-             for a in n.names]
-    names += [n.module for n in ast.walk(tree)
-              if isinstance(n, ast.ImportFrom)]
-    tops = {m.split(".")[0] for m in names}
-    assert "rafft_tpu_torch" in tops
-    assert not tops & {"jax", "jaxlib", "rafft_tpu"}, sorted(tops)
+    """chip_smoke.py and every module of the port run where the JAX
+    package is absent: none imports JAX or rafft_tpu itself, at top level
+    or inside a function."""
+    paths = sorted(_port_sources())
+    assert len(paths) > 20
+    for path in paths:
+        with open(path) as fh:
+            tree = ast.parse(fh.read())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                 for a in n.names]
+        names += [n.module or "" for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom)]
+        tops = {m.split(".")[0] for m in names}
+        assert not tops & {"jax", "jaxlib", "rafft_tpu"}, (path, sorted(tops))
+        if path.endswith("chip_smoke.py"):
+            assert "rafft_tpu_torch" in tops
