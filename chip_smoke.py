@@ -10,17 +10,35 @@ result line):
                 together, each timed;
   3. kernel   - at the shapes of every bucket's fold step (N=128: 16 x 50
                 beam rows, R=16; N=256: 16 x 50, R=16; N=512: 8 x 50,
-                R=16; N=1024: 4 x 50, R=32), all seven kernel tables equal
-                the plain PyTorch version on seeded random and degenerate
-                layouts; time both at each shape, and print the bytes,
-                cells and bound of the inputs (wavefront_work) with the
-                kernel's share of the bound;
+                R=16; N=1024: 4 x 50, R=32; N=2048: 2 x 50, R=32; N=4096:
+                1 x 50, R=32; and N=128 at K=200: 16 x 200, R=16), all seven
+                kernel tables equal the plain PyTorch version on seeded
+                random and degenerate layouts (two layouts up to N=1024
+                and at K=200, one at 2048 and 4096, where the plain
+                version takes seconds a call); time both at each shape,
+                and print the bytes, cells and bound of the inputs
+                (wavefront_work) with the kernel's share of the bound.
+                Then the N=128 shape at non-integral pair weights: the six
+                integer tables equal, cor_raw within COR_RAW_TOL;
   4. fold_one - the README sequence at max_stack 5 and 20 gives the same
                 trajectory and final beam as the sequential CPU oracle;
   4b. oracle  - the port's own fold_cpu, with the native evaluator, gives
                 the committed README trajectories and the committed beams
                 of journal rows 443, 567, 947 and 1262, and the native
                 and the numpy evaluator agree on all those structures;
+  4c. weights - fold_one of the README sequence at max_stack 5 and 20 with
+                non-integral pair weights (the FFT correlation ranks the
+                lags, the kernel's tables give the window slide) on the
+                card, on the CPU in the same run and in the committed
+                output of the JAX engine on the CPU: equal, or the first
+                differing step swaps lags whose correlations differ by
+                less than COR_TOL (tools/measure.py:
+                first_difference_is_a_tie); _correlate on the card
+                against the CPU within COR_TOL at the N=128 step shape;
+                and the card against the CPU in lock-step, under the same
+                rule, on four repetitive sequences (ties likely) and on a
+                journal row of the 512 bucket (tolerance 4 x COR_TOL: the
+                sums are larger);
   5. headline - FoldEngine at N=128, K=50, M=100, R=16, V=4096, W=8,
                 CPLX=512, S=16384, max_branch=1000, B=16: run_stream over
                 the first 64 journal rows of <= 120 nt must reproduce the
@@ -41,16 +59,51 @@ result line):
                 flagged rows carry the journal's flag bits; the kernel on
                 one real step of each bucket beside its bound, and the
                 same checks on one more fold of the flagged rows alone;
+  7b. k200    - run_stream at bucket_config(128, 200, 200, 1000), B=16 (3,200
+                beam rows), over the first 16 journal rows of <= 120 nt:
+                flags printed by cause (a flagged fold is one the sweep
+                refolds on the CPU); an unflagged row's best structure and
+                energy equal the committed K=200 sweep
+                (sweep_200n200_tpu.ckpt.jsonl) or, where that row differs,
+                its whole beam equals the port's fold_cpu; then the first 4
+                rows of the 1024 bucket at its K=200 configuration, B=4,
+                against sweep_200n200_cpu.ckpt.jsonl in the same way (its
+                complex-candidate budget of 1,024 overflows at K=200, so
+                these rows come out flagged `cplx_budget`, as they did for
+                the JAX engine, whose K=200 sweep of the 512 and 1024
+                buckets ran on the CPU engine); peak memory of both;
+  7c. long    - run_stream at bucket_config(4096, 100, 50, 1000), B=1, on
+                the two 23S rRNAs of longtail.ckpt.jsonl (2,915 and 2,968
+                nt): a row carries a nonzero flag, printed by cause, or
+                gives the committed structure and energy.  At
+                bucket_config(2048, 100, 50, 1000), B=2, two seeded
+                sequences of 1,100 to 2,000 nt: every beam entry's energy
+                equals eval_structure_int, energies ascend, flags printed;
+                the same two at the cut configuration -n 20 -ms 3
+                --max_branch 100 equal the port's fold_cpu, run here, and
+                the committed beams.  Every step keeps the kernel's layout
+                contract, and the kernel on one captured step of each
+                bucket equals the plain version, timed beside its bound.
+                These folds run once, with the layout check inside the
+                timed run (one host read a step);
   8. sweep    - the port's sweep() on the first 16 journal rows writes
                 the journal's beams-journal rows;
   9. cli      - `python -m rafft_tpu_torch.cli.fold_cli --device cuda`
-                prints what the reference CLI prints with its CPU engine;
+                prints what the reference CLI prints with its CPU engine,
+                and with --nono the reference's tree-keeping output;
  10. full     - with --full only: sweep() over all 2,294 journal rows,
                 the flagged ones refolded on the CPU; every beams-journal
                 row equals the committed journal or, on the rows where
                 that differs, the sequential CPU parity oracle (the
                 reference semantics).  Prints the refold seconds and the
                 evaluator the refold ran, which must be the native one.
+                Then sweep() over the two 23S rRNAs (the 4096 bucket, the
+                CPU refold of what the engine flags): the result rows
+                equal longtail.ckpt.jsonl.
+The default run's earlier phases are uncut; what was cut to keep it short
+is in the new ones: one seeded layout and one timed call of the plain
+version at N=2048 and 4096, 16 and 4 rows in the k200 phase, one pass
+over each long fold.
 The oracle's and the reference CLI's outputs come from
 rafft_tpu_torch/testdata/chip_smoke_refs.json, which
 tests/test_torch_smoke_refs.py holds against the JAX package on the CPU;
@@ -67,7 +120,9 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import gzip
+import io
 import json
 import os
 import subprocess
@@ -79,23 +134,30 @@ import numpy as np
 import torch
 
 from rafft_tpu_torch import _build
+from rafft_tpu_torch.cli import fold_cli
 from rafft_tpu_torch.energy import eval_torch as ET
 from rafft_tpu_torch.energy.eval_np import eval_structure_int
 from rafft_tpu_torch.energy.params import encode_sequence, get_params
 from rafft_tpu_torch.engine import fold_cpu
+from rafft_tpu_torch.engine import fold_torch as FT
 from rafft_tpu_torch.engine import wavefront as WT
 from rafft_tpu_torch.engine.fold_torch import (EngineConfig, FoldEngine,
-                                               fold_one, weight_matrix)
-from rafft_tpu_torch.parallel.sweep import bucket_batch, bucket_config, sweep
+                                               fold_one, fold_one_config,
+                                               weight_matrix)
+from rafft_tpu_torch.parallel.sweep import (FLAG_NAMES, bucket_batch,
+                                            bucket_config, sweep)
 from rafft_tpu_torch.native import native_oracle
 from rafft_tpu_torch.struct import pair_table
-from rafft_tpu_torch.tools.measure import (KERNEL_SHAPES, K_BEAM, bucket_rows,
+from rafft_tpu_torch.tools.measure import (KERNEL_SHAPES, bucket_rows,
                                            capture_kernel_call, event_ms,
+                                           first_difference_is_a_tie,
                                            kernel_bound, nested_tables,
-                                           seeded_kernel_args)
+                                           seeded_kernel_args,
+                                           seeded_sequence)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 JOURNAL = os.path.join(ROOT, "benchmarks", "artifacts", "beams_100n50.jsonl.gz")
+ARTIFACTS = os.path.join(ROOT, "benchmarks", "artifacts")
 REFS = os.path.join(ROOT, "rafft_tpu_torch", "testdata", "chip_smoke_refs.json")
 HEADLINE = EngineConfig(N=128, K=50, M=100, R=16, V=4096, W=8, CPLX=512,
                         S=16384, max_branch=1000)
@@ -103,6 +165,15 @@ B = 16
 # journal rows folded per bucket in phase 7 (beside its flagged rows)
 BUCKET_ROWS = {256: 32, 512: 16, 1024: 4}
 GiB = 2 ** 30
+# non-integral weights: absolute tolerance on the normalised FFT
+# correlation between two transforms at N=128 (values up to about 3; the
+# unnormalised sums reach 300 and an edge lag divides by 1), and on the
+# kernel's raw diagonal sums against the plain version's
+COR_TOL = 1e-4
+COR_RAW_TOL = 1e-3
+# repeats make lags of equal pair content: where ties are likely
+TIE_SEQS = ["GCAU" * 11, "GGGAAACCCUUU" * 3 + "GGGAAACC", "GU" * 20,
+            "ACGUUGCA" * 5]
 
 
 def log(msg):
@@ -155,12 +226,18 @@ def phase_build():
     return secs
 
 
-def _tables_equal(args, what):
+def _tables_equal(args, what, timed=None):
     """All seven kernel tables equal the plain version on `args`, whole
-    tables.  Returns the largest absolute difference (0.0)."""
+    tables.  Returns the largest absolute difference (0.0).  `timed`, a
+    dict, receives the ms of this one call of the plain version."""
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
     want = WT.wavefront_tables_ref(*args)
+    t1.record()
     got = WT.wavefront_tables(*args)
     torch.cuda.synchronize()
+    if timed is not None:
+        timed["plain_ms"] = t0.elapsed_time(t1)
     err = 0.0
     for k in WT.KEYS:
         if got[k].shape != want[k].shape or not torch.equal(got[k], want[k]):
@@ -200,20 +277,46 @@ def phase_kernel():
     dev = torch.device("cuda")
     W = weight_matrix(3.0, 2.0, 1.0)
     shapes, max_err = [], 0.0
-    for N, nb, R, lens in KERNEL_SHAPES:
-        cfg = EngineConfig(N=N, K=K_BEAM, R=R)
+    for N, nb, R, lens, K in KERNEL_SHAPES:
+        cfg = EngineConfig(N=N, K=K, R=R)
         tabs = WT.small_tables(ET.device_params(cfg.temp, N, dev), W, dev)
-        for seed in (0, 1):
-            args = (cfg, tabs, *seeded_kernel_args(N, nb, R, lens, seed, dev))
+        seeds = (0, 1) if N <= 1024 else (1,)
+        for seed in seeds:
+            args = (cfg, tabs,
+                    *seeded_kernel_args(N, nb, R, lens, seed, dev, K))
             WT.check_layout(*args)
-            max_err = max(max_err, _tables_equal(args, f"N={N}, seed {seed}"))
+            once = {}
+            max_err = max(max_err, _tables_equal(args, f"N={N}, seed {seed}",
+                                                 timed=once))
         rec = _kernel_vs_bound("kernel", args, N)
-        rec["plain_ms"] = event_ms(lambda: WT.wavefront_tables_ref(*args),
-                                   2 if N > 256 else 5)
-        log(f"[kernel] N={N}: 7/7 tables equal on 2 layouts; plain torch "
-            f"{rec['plain_ms']:.4f} ms/call")
+        # past N=1024 the plain version takes seconds: the one call of the
+        # comparison is its time
+        rec["plain_ms"] = once["plain_ms"] if N > 1024 else event_ms(
+            lambda: WT.wavefront_tables_ref(*args), 5 if N <= 256 else 2)
+        log(f"[kernel] N={N} K={K}: 7/7 tables equal on {len(seeds)} "
+            f"layout(s); plain torch {rec['plain_ms']:.4f} ms/call")
         shapes.append(rec)
     log(f"[kernel] tolerance: exact; max abs err {max_err}")
+    # non-integral pair weights at the N=128 step shape: the recurrence is
+    # the same float32 operations in the same order, the correlation sums
+    # may round differently
+    N, nb, R, lens, K = KERNEL_SHAPES[0]
+    cfg = EngineConfig(N=N, K=K, R=R, gc_wei=2.5, au_wei=1.7, gu_wei=0.8)
+    tabs = WT.small_tables(ET.device_params(cfg.temp, N, dev),
+                           weight_matrix(2.5, 1.7, 0.8), dev)
+    args = (cfg, tabs, *seeded_kernel_args(N, nb, R, lens, 1, dev, K))
+    want, got = WT.wavefront_tables_ref(*args), WT.wavefront_tables(*args)
+    for k in WT.KEYS[1:]:
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"kernel table {k} differs at non-integral "
+                                 f"weights")
+    cor_err = (got["cor_raw"] - want["cor_raw"]).abs().max().item()
+    if not cor_err <= COR_RAW_TOL:
+        raise AssertionError(f"cor_raw differs by {cor_err} at non-integral "
+                             f"weights (tolerance {COR_RAW_TOL})")
+    log(f"[kernel] N={N} at weights 2.5/1.7/0.8: 6/6 integer tables equal "
+        f"the plain version; cor_raw max abs err {cor_err} (tolerance "
+        f"{COR_RAW_TOL}, sums up to {want['cor_raw'].max().item():.1f})")
     return dict(max_abs_err=max_err, ms=shapes[0]["ms"],
                 plain_ms=shapes[0]["plain_ms"], bound_ms=shapes[0]["bound_ms"],
                 bound_by=shapes[0]["bound_by"], library_ms=None, shapes=shapes)
@@ -284,6 +387,92 @@ def phase_oracle(refs):
         raise AssertionError(f"fold_cpu ran the {fold_cpu.EVALUATOR} evaluator")
     log(f"[oracle] evaluator: {fold_cpu.EVALUATOR}; native and numpy agree on "
         f"{n_eval} structures (exact)")
+
+
+@phase
+def phase_weights(refs, rows_all):
+    """Non-integral pair weights: the FFT correlation ranks the lags."""
+    dev = torch.device("cuda")
+    w = refs["weights"]["args"]
+    # _correlate on the card against the CPU at the N=128 step shape
+    N, nb, R, lens, K = KERNEL_SHAPES[0]
+    cfg = EngineConfig(N=N, K=K, R=R, **w)
+    W = weight_matrix(w["gc_wei"], w["au_wei"], w["gu_wei"])
+    rcodes, _, mlen, _, _ = seeded_kernel_args(N, nb, R, lens, 1, dev, K)
+    on_card = FT._correlate(cfg, W, rcodes, mlen, False)
+    on_cpu = FT._correlate(cfg, W, rcodes.cpu(), mlen.cpu(), False)
+    valid = on_cpu > FT.NEG / 2
+    if on_card.shape != (nb, K, R, 2 * N - 1) or not torch.equal(
+            on_card.cpu() > FT.NEG / 2, valid):
+        raise AssertionError("_correlate: shape or masked lags differ")
+    err = (on_card.cpu() - on_cpu)[valid].abs().max().item()
+    if not err < COR_TOL:
+        raise AssertionError(f"_correlate on the card differs from the CPU by "
+                             f"{err} (tolerance {COR_TOL})")
+    ms_call = event_ms(lambda: FT._correlate(cfg, W, rcodes, mlen, False), 20)
+    log(f"[weights] _correlate {tuple(on_card.shape)}: max abs difference "
+        f"card - CPU {err:.3e} over {int(valid.sum())} lags (tolerance "
+        f"{COR_TOL}); {ms_call:.3f} ms/call on the card")
+    launches = 0
+    for ms in (5, 20):
+        kw = dict(nb_mode=100, max_stack=ms, max_branch=1000, traj=True, **w)
+        WT.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res, traj = fold_one(refs["readme_seq"], device="cuda", **kw)
+        secs = time.perf_counter() - t0
+        if WT.LAUNCHES == 0:
+            raise AssertionError("the fold never launched the wavefront kernel")
+        launches += WT.LAUNCHES
+        res_c, traj_c = fold_one(refs["readme_seq"], device="cpu", **kw)
+        card = [_rows(x) for x in traj] + [_rows(res)]
+        cpu = [_rows(x) for x in traj_c] + [_rows(res_c)]
+        ref = refs["weights"]["fold_one"][str(ms)]
+        jax_cpu = ref["traj"] + [ref["final"]]
+        tie = None
+        if card != cpu:
+            # legitimate only if the first differing step is a tie of the
+            # FFT correlation between the two transforms
+            cfg1 = fold_one_config(len(refs["readme_seq"]), 100, ms, 1000,
+                                   **w)
+            tie = first_difference_is_a_tie(
+                FoldEngine(cfg1, 1, device="cuda"),
+                FoldEngine(cfg1, 1, device="cpu"), [refs["readme_seq"]],
+                COR_TOL)
+            if tie is None:
+                raise AssertionError(f"weights ms={ms}: the folds differ but "
+                                     f"no step does")
+            log(f"[weights] ms={ms}: card and CPU differ from step {tie[0]}: "
+                f"{tie[1]} lag ranks swapped within {tie[2]:.3e} (a tie)")
+        if jax_cpu not in (card, cpu):
+            raise AssertionError(f"weights ms={ms}: neither the card's nor "
+                                 f"the CPU's fold equals the committed output "
+                                 f"of the JAX engine")
+        log(f"[weights] ms={ms}: {len(traj)} steps + final beam on the card "
+            f"{'equal' if card == cpu else 'tie-equal to'} the CPU's and "
+            f"{'equal' if card == jax_cpu else 'differ by that tie from'} the "
+            f"committed JAX-engine output ({secs:.2f} s on the card, "
+            f"wavefront launches {WT.LAUNCHES})")
+    # the card and the CPU in lock-step where ties are likely (repeats)
+    # and at a longer N (the first journal row of the 512 bucket), whose
+    # sums, and with them the transforms' noise, are larger
+    long_row = bucket_rows(rows_all, 512, 1)[0]["seq"]
+    for what, seqs, cfg, tol in (
+            ("4 repetitive sequences, N=64, K=6", TIE_SEQS,
+             EngineConfig(N=64, K=6, R=8, M=24, V=128, CPLX=32, S=512,
+                          max_branch=128, max_steps=10, **w), COR_TOL),
+            (f"a journal row of {len(long_row)} nt, N=512, K=5", [long_row],
+             fold_one_config(len(long_row), 100, 5, 1000, **w), 4 * COR_TOL)):
+        WT.LAUNCHES = 0
+        tie = first_difference_is_a_tie(
+            FoldEngine(cfg, len(seqs), device="cuda"),
+            FoldEngine(cfg, len(seqs), device="cpu"), seqs, tol)
+        launches += WT.LAUNCHES
+        log(f"[weights] lock-step card / CPU, {what} (tolerance {tol:.0e}): "
+            + ("every step equal" if tie is None else
+               f"first difference at step {tie[0]}: {tie[1]} lag ranks "
+               f"swapped, each within {tie[2]:.3e} (a tie)")
+            + f"; wavefront launches {WT.LAUNCHES}")
+    return launches
 
 
 def _stream(eng, rows, warm):
@@ -398,6 +587,178 @@ def phase_buckets(rows_all):
     return launches, steps
 
 
+def _flag_names(flag):
+    return "+".join(c for b, c in FLAG_NAMES.items() if flag & b) or "none"
+
+
+def _fold_once(eng, seqs):
+    """One run_stream over `seqs` with the launch count and the peak set
+    to 0 just before it; every step's kernel tensors are held to the
+    layout contract inside the run (one host read a step), and the 4th
+    step's are kept.  Returns (beams and flags by index, seconds, peak
+    bytes, launches, the kept arguments)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    WT.LAUNCHES = 0
+    out = []
+    t0 = time.perf_counter()
+    step_args = capture_kernel_call(eng, seqs, every=WT.check_layout, out=out)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if sorted(i for i, _, _ in out) != list(range(len(seqs))):
+        raise AssertionError("run_stream did not yield every sequence once")
+    if WT.LAUNCHES == 0:
+        raise AssertionError("the run never launched the wavefront kernel")
+    by_index = {i: (beam, flag) for i, beam, flag in out}
+    return (by_index, secs, torch.cuda.max_memory_allocated(), WT.LAUNCHES,
+            step_args)
+
+
+def _ckpt_rows(name):
+    with open(os.path.join(ARTIFACTS, name)) as fh:
+        return {(r["name"], r["seq"]): r for r in map(json.loads, fh)}
+
+
+@phase
+def phase_k200(rows_all):
+    """-n 200 -ms 200 at full width: 3,200 beam rows at the 128 bucket."""
+    launches, steps = {}, []
+    for N, count, ckpt in ((128, 16, "sweep_200n200_tpu.ckpt.jsonl"),
+                           (1024, 4, "sweep_200n200_cpu.ckpt.jsonl")):
+        rows = ([r for r in rows_all if len(r["seq"]) <= 120] if N == 128
+                else bucket_rows(rows_all, N, count))[:count]
+        want = _ckpt_rows(ckpt)
+        nb = bucket_batch(16, N)
+        eng = FoldEngine(bucket_config(N, 200, 200, 1000), B=nb, device="cuda")
+        got, secs, peak, n_launch, step_args = _fold_once(
+            eng, [r["seq"] for r in rows])
+        flags, refolded, flagged_equal = [], [], 0
+        for i, r in enumerate(rows):
+            beam, flag = got[i]
+            flags.append(flag)
+            w = want[(r["name"], r["seq"])]
+            if flag:
+                # a sweep refolds it on the CPU; say whether it came out
+                # right all the same
+                flagged_equal += beam[0] == (w["struct"], w["nrj"])
+                continue
+            if beam[0] != (w["struct"], w["nrj"]):
+                # the committed K=50 journal has rows that are artifacts of
+                # the run that wrote it: hold such a row to the parity engine
+                cpu = fold_cpu.fold(r["seq"], nb_mode=200, max_stack=200,
+                                    max_branch=1000)
+                if beam != [(x.str_struct, x.energy) for x in cpu]:
+                    raise AssertionError(
+                        f"k200 N={N} row {i} ({r['name']}) differs from the "
+                        f"committed sweep and from fold_cpu")
+                refolded.append(i)
+        n_flagged = sum(map(bool, flags))
+        if N == 128 and n_flagged > len(rows) // 2:
+            raise AssertionError(f"k200 N={N}: most rows flagged: {flags}")
+        log(f"[k200] N={N} B={nb} K=200 ({nb * 200} beam rows): "
+            f"{len(rows) - len(refolded) - n_flagged} unflagged best rows "
+            f"equal {ckpt}, {len(refolded)} equal fold_cpu instead (rows "
+            f"{refolded}); {n_flagged} flagged, of which {flagged_equal} give "
+            f"the committed best row all the same; flags "
+            f"{[_flag_names(f) for f in flags]}; "
+            f"{len(rows) / secs:.3f} seq/s ({secs:.3f} s for {len(rows)}, the "
+            f"layout check inside); peak {peak / 2**20:.1f} MiB; wavefront "
+            f"launches {n_launch}")
+        launches[N] = n_launch
+        steps.append(_kernel_vs_bound("k200 step", step_args, N,
+                                      real_step=True))
+        del eng, got, step_args
+        torch.cuda.empty_cache()
+    return launches, steps
+
+
+@phase
+def phase_long(refs):
+    """The 4096 and 2048 buckets at the sweep's configurations."""
+    launches, steps = {}, []
+    # ---- 4096: the two 23S rRNAs of the corpus
+    rows = list(_ckpt_rows("longtail.ckpt.jsonl").values())
+    eng = FoldEngine(bucket_config(4096, 100, 50, 1000),
+                     B=bucket_batch(16, 4096), device="cuda")
+    got, secs, peak, launches[4096], step_args = _fold_once(
+        eng, [r["seq"] for r in rows])
+    for i, r in enumerate(rows):
+        beam, flag = got[i]
+        if not flag and beam[0] != (r["struct"], r["nrj"]):
+            raise AssertionError(f"{r['name']}: flag 0 but the best row "
+                                 f"differs from longtail.ckpt.jsonl")
+        log(f"[long] N=4096 {r['name']} ({len(r['seq'])} nt): flag {flag} "
+            f"({_flag_names(flag)}); " + (
+                "best row equals longtail.ckpt.jsonl" if not flag else
+                f"best {beam[0][1]:.2f} kcal/mol on the card, "
+                f"{r['nrj']:.2f} committed (CPU parity engine)"))
+    log(f"[long] N=4096 B={eng.B}: {len(rows) / secs:.4f} seq/s ({secs:.3f} s "
+        f"for {len(rows)}, {secs / launches[4096]:.3f} s a step, the layout "
+        f"check inside); peak {peak / 2**20:.1f} MiB; wavefront launches "
+        f"{launches[4096]}")
+    steps.append(_kernel_vs_bound("long step", step_args, 4096, reps=50,
+                                  real_step=True))
+    del eng, got, step_args
+    torch.cuda.empty_cache()
+
+    # ---- 2048: two seeded sequences of 1,100 to 2,000 nt
+    seqs = [x["seq"] for x in refs["long"]]
+    for x in refs["long"]:
+        if seeded_sequence(x["seed"], x["nmin"], x["nmax"]) != x["seq"]:
+            raise AssertionError(f"seed {x['seed']} gives another sequence")
+    eng = FoldEngine(bucket_config(2048, 100, 50, 1000),
+                     B=bucket_batch(16, 2048), device="cuda")
+    got, secs, peak, launches[2048], step_args = _fold_once(eng, seqs)
+    params, n_eval = get_params(37.0), 0
+    for i, seq in enumerate(seqs):
+        beam, flag = got[i]
+        es = [e for _, e in beam]
+        if es != sorted(es) or not beam:
+            raise AssertionError(f"long seed row {i}: energies do not ascend")
+        for db, e in beam:
+            want = float(np.float32(eval_structure_int(seq, db, params) / 100.0))
+            if len(db) != len(seq) or e != want:
+                raise AssertionError(f"long seed row {i}: {e} on the card, "
+                                     f"{want} by eval_structure_int")
+            n_eval += 1
+        log(f"[long] N=2048 seed {refs['long'][i]['seed']} ({len(seq)} nt): "
+            f"{len(beam)} beam entries, best {es[0]:.2f} kcal/mol; flag "
+            f"{flag} ({_flag_names(flag)})")
+    log(f"[long] N=2048 B={eng.B}: {n_eval} beam energies equal "
+        f"eval_structure_int, ascending; {len(seqs) / secs:.4f} seq/s "
+        f"({secs:.3f} s for {len(seqs)}, {secs / launches[2048]:.3f} s a "
+        f"step, the layout check inside); peak {peak / 2**20:.1f} MiB; "
+        f"wavefront launches {launches[2048]}")
+    steps.append(_kernel_vs_bound("long step", step_args, 2048, reps=100,
+                                  real_step=True))
+    del eng, got, step_args
+    torch.cuda.empty_cache()
+
+    # ---- the same two at the cut configuration, against fold_cpu
+    cut = refs["long"][0]["cut"]
+    eng = FoldEngine(bucket_config(2048, cut["nb_mode"], cut["max_stack"],
+                                   cut["max_branch"]),
+                     B=bucket_batch(16, 2048), device="cuda")
+    got, secs, _, launches["2048cut"], _ = _fold_once(eng, seqs)
+    for i, x in enumerate(refs["long"]):
+        t0 = time.perf_counter()
+        cpu = [[s.str_struct, float(np.float32(s.energy))]
+               for s in fold_cpu.fold(x["seq"], **cut)]
+        beam, flag = got[i]
+        if flag or [list(b) for b in beam] != cpu or cpu != x["beam"]:
+            raise AssertionError(f"long seed {x['seed']} at the cut "
+                                 f"configuration: flag {flag}, card == "
+                                 f"fold_cpu {[list(b) for b in beam] == cpu}, "
+                                 f"fold_cpu == committed {cpu == x['beam']}")
+        log(f"[long] N=2048 seed {x['seed']} at -n {cut['nb_mode']} -ms "
+            f"{cut['max_stack']} --max_branch {cut['max_branch']}: flag 0, "
+            f"{len(beam)} beam entries equal fold_cpu "
+            f"({time.perf_counter() - t0:.2f} s) and the committed beam")
+    log(f"[long] N=2048 cut configuration: {secs:.3f} s for {len(seqs)}; "
+        f"wavefront launches {launches['2048cut']}")
+    return launches, steps
+
+
 def _beam_rows(path):
     with open(path) as fh:
         return [json.loads(line) for line in fh]
@@ -469,6 +830,16 @@ def phase_cli(refs):
                              "reference CLI's")
     log(f"[cli] fold_cli --device cuda {' '.join(args[2:])}: "
         f"{len(got.stdout.splitlines())} lines equal the reference CLI's")
+    # the tree-keeping engine touches no device: in this process
+    nono = ["-s", refs["readme_seq"], *refs["cli_nono"]["args"]]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fold_cli.main(nono)
+    if buf.getvalue() != refs["cli_nono"]["stdout"]:
+        raise AssertionError("the port's CLI with --nono differs from the "
+                             "reference CLI's")
+    log(f"[cli] fold_cli {' '.join(nono[2:])}: "
+        f"{len(buf.getvalue().splitlines())} lines equal the reference CLI's")
 
 
 @phase
@@ -533,29 +904,77 @@ def phase_full(rows_all, refs):
         f"equal the CPU parity oracle fold_cpu")
 
 
+@phase
+def phase_full_long():
+    """sweep() over the two 23S rRNAs: the 4096 bucket with the CPU refold
+    of what the engine flags, against longtail.ckpt.jsonl."""
+    want = list(_ckpt_rows("longtail.ckpt.jsonl").values())
+    records = [(r["seq"], "." * len(r["seq"]), r["name"]) for r in want]
+    stats = {}
+    WT.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = sweep(records, stats=stats, device="cuda")
+    secs = time.perf_counter() - t0
+    if WT.LAUNCHES == 0:
+        raise AssertionError("the 4096 bucket never launched the kernel")
+    for r, w in zip(res, want):
+        if (r["struct"], r["nrj"], r["nbp"]) != (w["struct"], w["nrj"],
+                                                  w["nbp"]):
+            raise AssertionError(f"{w['name']}: sweep() differs from "
+                                 f"longtail.ckpt.jsonl")
+    log(f"[full] 23S pair through sweep(): {len(res)}/{len(want)} rows equal "
+        f"longtail.ckpt.jsonl; {secs:.1f} s, {stats['n_fallback']} refolded on "
+        f"the CPU ({stats['flag_causes']}, evaluator "
+        f"{stats.get('refold_evaluator')}); wavefront launches {WT.LAUNCHES}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--full", action="store_true",
-                    help="also sweep all 2,294 journal rows (several minutes)")
+                    help="also sweep all 2,294 journal rows and the two 23S "
+                         "rRNAs (several minutes)")
+    ap.add_argument("--only", help="comma-separated phases to run after "
+                    "device and build (kernel, fold_one, oracle, weights, "
+                    "headline, loops, buckets, k200, long, sweep, cli): a "
+                    "partial run for finding faults, which prints no result "
+                    "line")
     args = ap.parse_args(argv)
     smi = phase_device()
     with open(REFS) as fh:
         refs = json.load(fh)
     phase_build()
-    kern = phase_kernel()
-    phase_fold_one(refs)
-    phase_oracle(refs)
     rows = journal()
-    n_head, head_step = phase_headline(rows)
-    launches = {"headline": n_head}
-    phase_loops()
-    n_bucket, bucket_steps = phase_buckets(rows)
-    launches.update({f"bucket{N}": v for N, v in n_bucket.items()})
-    launches["sweep"] = phase_sweep(rows)
-    phase_cli(refs)
+    launches, steps, kern = {}, [], {}
+
+    def counted(name, result):
+        n, step = result
+        launches.update({f"{name}{k}": v for k, v in n.items()}
+                        if isinstance(n, dict) else {name: n})
+        steps.extend(step if isinstance(step, list) else [step])
+
+    phases = dict(
+        kernel=lambda: kern.update(phase_kernel()),
+        fold_one=lambda: phase_fold_one(refs),
+        oracle=lambda: phase_oracle(refs),
+        weights=lambda: counted("weights", (phase_weights(refs, rows), [])),
+        headline=lambda: counted("headline", phase_headline(rows)),
+        loops=phase_loops,
+        buckets=lambda: counted("bucket", phase_buckets(rows)),
+        k200=lambda: counted("k200_", phase_k200(rows)),
+        long=lambda: counted("long", phase_long(refs)),
+        sweep=lambda: counted("sweep", (phase_sweep(rows), [])),
+        cli=lambda: phase_cli(refs))
+    only = args.only.split(",") if args.only else list(phases)
+    for name in only:
+        phases[name]()
+    if args.only:
+        log(f"[partial] ran {only}: wavefront launches {launches}; no result "
+            f"line")
+        return
     if args.full:
         phase_full(rows, refs)
-    kern["shapes"] += [head_step, *bucket_steps]
+        phase_full_long()
+    kern["shapes"] += steps
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "rafft_tpu"))
     if loaded:

@@ -3,9 +3,11 @@
     python -m rafft_tpu_torch.cli.fold_cli --device cuda -s <SEQ> [-ms 5 --traj]
 
 The flags and the output are those of rafft_tpu/cli/fold_cli.py (the
-reference CLI's surface, parsed-but-unused flags included), without its
-engine choices, and with the device to fold on.  Non-integral pair
-weights exit nonzero: their FFT correlation path is not ported.
+reference CLI's surface, parsed-but-unused flags included), plus the
+device to fold on.  --engine torch (the default) folds with the batched
+engine on --device; --engine cpu folds with the sequential CPU parity
+engine and --nono with the tree-keeping engine, neither of which
+touches a device.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from rafft_tpu_torch.engine import fold_cpu, fold_nono
 from rafft_tpu_torch.engine.fold_torch import fold_one
 
 
@@ -46,6 +49,11 @@ def parse_arguments(argv=None):
     parser.add_argument('-gc', '--gc_wei', type=float, default=3.00, help="GC weight")
     parser.add_argument('-au', '--au_wei', type=float, default=2.00, help="AU weight")
     parser.add_argument('-gu', '--gu_wei', type=float, default=1.00, help="GU weight")
+    parser.add_argument('--nono', action="store_true",
+                        help="Use the tree-keeping (nono) engine instead.")
+    parser.add_argument('--engine', choices=("cpu", "torch"), default="torch",
+                        help="fold engine: torch (batched engine on --device) "
+                             "or cpu (sequential parity oracle)")
     return parser.parse_args(argv)
 
 
@@ -63,15 +71,21 @@ def main(argv=None):
             ).replace("T", "U")
     len_seq = len(sequence)
 
-    try:
+    if args.nono or args.engine == "cpu":
+        fold = fold_nono.fold if args.nono else fold_cpu.fold
+        results = fold(
+            sequence, args.n_mode, args.max_stack, args.max_branch,
+            args.min_hp, args.min_nrj, args.traj, args.temp,
+            args.gc_wei, args.au_wei, args.gu_wei)
+        if args.nono:
+            results, root = results
+    else:
         results = fold_one(
             sequence, nb_mode=args.n_mode, max_stack=args.max_stack,
             max_branch=args.max_branch, min_hp=args.min_hp,
             min_nrj=args.min_nrj, traj=args.traj, temp=args.temp,
             gc_wei=args.gc_wei, au_wei=args.au_wei, gu_wei=args.gu_wei,
             device=args.device)
-    except NotImplementedError as exc:
-        sys.exit(f"error: {exc}")
 
     if args.traj:
         final_struct, trajectory = results
@@ -89,6 +103,9 @@ def main(argv=None):
                       str_struct.count("("))
             else:
                 print(f"{str_struct} {nrj_pred:6.1f}")
+        if args.nono:
+            print("====================== Full Tree ========================")
+            print(root)
     else:
         print(f"{sequence}")
         for si, fold_step in enumerate(trajectory):

@@ -318,6 +318,8 @@ extern "C" int rafft_wavefront(
     int regions, int N, int min_hp, void* stream) {
   if (regions <= 0 || N <= 0) return 0;
   if (min_hp < 0) return static_cast<int>(cudaErrorInvalidValue);
+  // one region's four rows: 16 N bytes, 32 KiB at N = 2048 and 64 KiB at
+  // N = 4096, which is past the 48 KiB a kernel gets without opting in
   const size_t smem = 4 * static_cast<size_t>(N) * sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(

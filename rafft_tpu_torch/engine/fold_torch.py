@@ -12,10 +12,16 @@ What differs from the JAX engine:
 
 * the batch dimension B is written out (no vmap), and every tensor lives
   on the engine's explicit `device`;
-* correlation and window slide always come from the wavefront tables
+* the window slide always comes from the wavefront tables
   (engine/wavefront.py: the CUDA kernel on the card, its plain version
-  on the CPU), so only integral pair weights are supported; the FFT
-  path that non-integral weights need is not ported;
+  on the CPU), at every N up to 4096.  For integral pair weights the
+  tables' correlation sums are exact and rank the lags as well; for
+  non-integral weights the lags are ranked by the FFT correlation
+  (_correlate, as in the JAX engine, whose float32 sums differ from the
+  tables' diagonal-order sums) and the window-slide values are gathered
+  from the tables at the chosen lags: they are a sequential float32
+  recurrence per lag, the same in the tables and in
+  fold_jax._window_scan;
 * lookups are plain gathers: no one-hot einsums, no lane compaction and
   no f32 packing of dE / hash halves (dE, live-region counts and hashes
   stay integer tensors; hashes are uint32 values held in int64);
@@ -33,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from rafft_tpu_torch.energy.params import encode_sequence
+from rafft_tpu_torch.scan.correlate import correlate_fft
 from rafft_tpu_torch.scan.encode import weight_matrix
 from rafft_tpu_torch.struct import Structure, dot_bracket
 from rafft_tpu_torch.energy.eval_torch import (_ext_stem_v, _hairpin_v,
@@ -56,9 +63,13 @@ M_NORM, M_FIRST, M_DONE = 0, 1, 2
 INFE = 1 << 30
 TBIG = 1 << 28
 CLAMP = 1 << 20
-# the longest padded length the port folds; the 2048/4096 buckets are
-# queued in ROADMAP.md
-MAX_N = 1024
+# the longest padded length the engine folds (the largest bucket of the
+# sweep).  What grows with N was audited up to it: the (depth, position)
+# sort keys of eval_torch._enclose and the hash sums are int64, the
+# Zobrist tables have N + 1 entries, flat gather indices are int64,
+# CLAMP / TBIG bound combination counts, which do not depend on N, and
+# the loop-size tables of energy/params.py reach 8,192 unpaired positions
+MAX_N = 4096
 
 
 @dataclass(frozen=True)
@@ -161,6 +172,24 @@ def _regions(cfg, pt, enclose, rorder, n):
                        -1)
     rslot = torch.where(has, rslot.to(i32), -1)
     return rpos, rloc, rslot, mlen
+
+
+def _lag_norm(cfg, mlen, raw):
+    """Raw correlation sums [B,K,R,2N-1] over the triangle overlap count,
+    NEG outside the 2m-1 lags of a region of m positions."""
+    lagv = torch.arange(2 * cfg.N - 1, dtype=torch.int32, device=raw.device)
+    m = mlen[..., None]
+    norm = torch.minimum(lagv, (2 * m - 2 - lagv).clamp(min=0)) + 1.0
+    return torch.where(lagv < 2 * m - 1, raw / norm, NEG)
+
+
+def _correlate(cfg, W, rcodes, mlen, integral):
+    """Normalised FFT correlation per region: [B,K,R,2N-1] float32
+    (fold_jax._correlate)."""
+    raw = correlate_fft(W, rcodes)
+    if integral:
+        raw = raw.round()
+    return _lag_norm(cfg, mlen, raw)
 
 
 def _top_lags(cfg, cor):
@@ -388,19 +417,15 @@ class FoldEngine:
         if cfg.min_hp < 0:
             raise ValueError(f"min_hp={cfg.min_hp} must be >= 0 (the "
                              "wavefront tables' padding entries assume it)")
-        if not _weights_integral(cfg):
-            raise NotImplementedError(
-                "non-integral pair weights need the FFT correlation path, "
-                "which rafft_tpu_torch does not have yet")
         if cfg.N > MAX_N:
-            raise NotImplementedError(
-                f"N={cfg.N}: rafft_tpu_torch folds sequences of up to "
-                f"{MAX_N} nt; the 2048/4096 buckets are queued in ROADMAP.md")
+            raise ValueError(f"N={cfg.N} exceeds {MAX_N}, the largest "
+                             "bucket the engine was audited for")
         self.cfg = cfg
         self.B = B
         self.device = torch.device(device)
         self.dp = device_params(cfg.temp, cfg.N, self.device)
         self.W = weight_matrix(cfg.gc_wei, cfg.au_wei, cfg.gu_wei)
+        self.integral = _weights_integral(cfg)
         # the kernel's lookup tables, uploaded once (not per step)
         self.wtabs = small_tables(self.dp, self.W, self.device)
         # Zobrist coefficients: the same draws as fold_jax, so hashes and
@@ -527,14 +552,15 @@ class FoldEngine:
         rposc = rpos.clamp(0, N).long()
         z1row, z2row = self.Z1i[rposc], self.Z2i[rposc]
 
-        # ---- correlation + window slide: the wavefront tables
+        # ---- correlation + window slide: the wavefront tables; for
+        # non-integral weights the FFT correlation ranks the lags
         tabs = wavefront_tables(cfg, self.wtabs, rcodes, rpos, mlen,
                                 z1row, z2row)
-        lagv = torch.arange(2 * N - 1, dtype=i32, device=dev)
         m_ = mlen[..., None]
-        norm = torch.minimum(lagv, (2 * m_ - 2 - lagv).clamp(min=0)) + 1.0
-        cor = torch.where(lagv < 2 * m_ - 1,
-                          tabs["cor_raw"][..., : 2 * N - 1] / norm, NEG)
+        if self.integral:
+            cor = _lag_norm(cfg, mlen, tabs["cor_raw"][..., : 2 * N - 1])
+        else:
+            cor = _correlate(cfg, self.W, rcodes, mlen, False)
         lags, lvals = _top_lags(cfg, cor)
         lag_ok = ((lvals > NEG / 2) & (mlen[..., None] >= 2)
                   & active[:, :, None, None])
@@ -979,19 +1005,27 @@ class FoldEngine:
         return [self._rows_from(pt[b], E[b], act[b], n[b]) for b in range(nseq)]
 
 
+def fold_one_config(n, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
+                    min_nrj=0.0, temp=37.0, gc_wei=3.0, au_wei=2.0,
+                    gu_wei=1.0) -> EngineConfig:
+    """The configuration fold_one folds a sequence of n nt at."""
+    N = 1 << max(5, int(np.ceil(np.log2(max(8, n)))))
+    return EngineConfig(N=N, K=max_stack, M=min(nb_mode, 2 * N - 1),
+                        max_branch=max_branch,
+                        min_hp=min_hp, min_nrj=min_nrj, temp=temp,
+                        gc_wei=gc_wei, au_wei=au_wei, gu_wei=gu_wei,
+                        V=min(4096, max(256, 2 * max_branch)),
+                        S=max(4096, 16 * max_stack * 8),
+                        R=16 if N <= 512 else 32)
+
+
 def fold_one(sequence, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
              min_nrj=0.0, traj=False, temp=37.0, gc_wei=3.0, au_wei=2.0,
              gu_wei=1.0, *, device="cuda"):
     """Single-sequence API on the batched engine (reference fold()
     signature plus the device to run on)."""
-    N = 1 << max(5, int(np.ceil(np.log2(max(8, len(sequence))))))
-    cfg = EngineConfig(N=N, K=max_stack, M=min(nb_mode, 2 * N - 1),
-                       max_branch=max_branch,
-                       min_hp=min_hp, min_nrj=min_nrj, temp=temp,
-                       gc_wei=gc_wei, au_wei=au_wei, gu_wei=gu_wei,
-                       V=min(4096, max(256, 2 * max_branch)),
-                       S=max(4096, 16 * max_stack * 8),
-                       R=16 if N <= 512 else 32)
+    cfg = fold_one_config(len(sequence), nb_mode, max_stack, max_branch,
+                          min_hp, min_nrj, temp, gc_wei, au_wei, gu_wei)
     eng = FoldEngine(cfg, B=1, device=device)
     mk = lambda rows: [Structure([], [], e, db) for db, e in rows]
     if traj:

@@ -9,13 +9,15 @@ dicts and the results CSV, the bucket checkpoint journal (`_idx`,
 `_bucket`), the beams journal ({name, seq, flagged, beam}), the run
 manifest and the flag histogram.
 
-Buckets 128 to 1024 are ported.  Longer ones (2048, 4096), and records
-that only they would hold (1025 to 4096 nt), raise NotImplementedError:
-ROADMAP.md queues them.
+The buckets are the JAX sweep's, 128 to 4096; records past the largest
+bucket are skipped, as there.  With engine="cpu" (--engine cpu) every
+bucket is folded by the CPU parity engine through the pool and no
+device is touched.
 
 CLI:
   python -m rafft_tpu_torch.parallel.sweep --csv <benchmark.csv> \
-      --out results.csv [--device cuda] [-n 100 -ms 50] [--limit 200]
+      --out results.csv [--device cuda] [--engine torch|cpu] \
+      [-n 100 -ms 50] [--limit 200]
 """
 
 from __future__ import annotations
@@ -29,12 +31,11 @@ import time
 
 import numpy as np
 
-from rafft_tpu_torch.engine.fold_torch import MAX_N, EngineConfig, FoldEngine
+from rafft_tpu_torch.engine.fold_torch import EngineConfig, FoldEngine
 from rafft_tpu_torch.scoring import best_of, score_structures
 
 # the buckets of rafft_tpu/parallel/sweep.py (no 64 bucket there either)
-JAX_BUCKETS = (128, 256, 512, 1024, 2048, 4096)
-DEFAULT_BUCKETS = tuple(b for b in JAX_BUCKETS if b <= MAX_N)
+DEFAULT_BUCKETS = (128, 256, 512, 1024, 2048, 4096)
 
 # engine exactness-flag bits -> cause names (fold_torch.FLAG_*)
 FLAG_NAMES = {1: "v_window", 2: "r_slots", 4: "seen_set", 8: "hash_check",
@@ -80,10 +81,6 @@ def bucket_batch(batch, N):
 def bucket_config(N, nb_mode, max_stack, max_branch) -> EngineConfig:
     """The JAX sweep's engine configuration for bucket N
     (rafft_tpu/parallel/sweep.py:167-186)."""
-    if N > MAX_N:
-        raise NotImplementedError(
-            f"bucket N={N}: rafft_tpu_torch folds buckets up to "
-            f"{MAX_N}; the 2048/4096 buckets are queued in ROADMAP.md")
     return EngineConfig(N=N, K=max_stack, M=min(nb_mode, 2 * N - 1),
                         R=16 if N <= 512 else 32, max_branch=max_branch,
                         V=4096, W=8 if N <= 128 else 24,
@@ -115,30 +112,26 @@ def _result(record, rows, best_of_k):
 
 def sweep(records, nb_mode=100, max_stack=50, max_branch=1000,
           buckets=DEFAULT_BUCKETS, batch=16, best_of_k=False, progress=None,
-          checkpoint=None, save_beams=None, stats=None, workers=None, *,
-          device="cuda"):
+          checkpoint=None, save_beams=None, stats=None, workers=None,
+          engine="torch", *, device="cuda"):
     """Fold every record on `device`; returns result dicts in input order.
 
     The arguments and outputs are those of rafft_tpu.parallel.sweep.sweep
-    (without its mesh and engine choice): save_beams appends one jsonl row
-    per folded sequence, checkpoint journals finished buckets and skips
-    them on restart, stats receives per-bucket timings, the fallback count,
-    the flag histogram and, where folds were refolded on the CPU, the
-    energy evaluator the refold ran (`refold_evaluator`).  Records longer
-    than the largest bucket are skipped, except those of MAX_N+1 to 4096 nt: the JAX sweep folds them
-    in its 2048/4096 buckets, so they raise NotImplementedError."""
-    for N in buckets:
-        bucket_config(N, nb_mode, max_stack, max_branch)   # refuses N > MAX_N
+    (without its mesh; engine is "torch" where that says "jax"):
+    save_beams appends one jsonl row per folded sequence, checkpoint
+    journals finished buckets and skips them on restart, stats receives
+    per-bucket timings, the fallback count, the flag histogram and, where
+    folds ran on the CPU parity engine, the energy evaluator they ran
+    (`refold_evaluator`).  engine="cpu" folds every bucket on the CPU
+    parity engine through the pool and never touches `device`.  Records
+    longer than the largest bucket are skipped."""
+    if engine not in ("torch", "cpu"):
+        raise ValueError(f"engine must be 'torch' or 'cpu', got {engine!r}")
     workers = workers or max(1, mp.cpu_count())
 
     by_bucket: dict[int, list[int]] = {}
     for i, (seq, _t, _n) in enumerate(records):
         b = bucket_of(len(seq), buckets)
-        if b is None and MAX_N < len(seq) <= max(JAX_BUCKETS):
-            raise NotImplementedError(
-                f"record {i} ({len(seq)} nt): rafft_tpu_torch folds "
-                f"sequences of up to {MAX_N} nt; the 2048/4096 buckets are "
-                f"queued in ROADMAP.md")
         if b is not None:
             by_bucket.setdefault(b, []).append(i)
 
@@ -173,11 +166,17 @@ def sweep(records, nb_mode=100, max_stack=50, max_branch=1000,
 
         n_done = 0
         flag_of: dict[int, int] = {}
-        pending = []
-        eng = FoldEngine(bucket_config(N, nb_mode, max_stack, max_branch),
-                         B=bucket_batch(batch, N), device=device)
-        for local_i, rows, flagged in eng.run_stream(
-                [records[i][0] for i in idxs]):
+        if engine == "cpu":
+            # no card: the whole bucket goes to the pool
+            stream = ()
+            pending = [(i, records[i][0], nb_mode, max_stack, max_branch)
+                       for i in idxs]
+        else:
+            pending = []
+            eng = FoldEngine(bucket_config(N, nb_mode, max_stack, max_branch),
+                             B=bucket_batch(batch, N), device=device)
+            stream = eng.run_stream([records[i][0] for i in idxs])
+        for local_i, rows, flagged in stream:
             i = idxs[local_i]
             if flagged:
                 # the exactness escape hatch: the CPU parity engine
@@ -202,7 +201,11 @@ def sweep(records, nb_mode=100, max_stack=50, max_branch=1000,
                 for i, rows, evaluator in pool.imap_unordered(
                         _cpu_refold, pending):
                     evaluators.add(evaluator)
-                    finish(i, rows, flag_of[i])
+                    finish(i, rows, flag_of.get(i, 0))
+                    if engine == "cpu":
+                        n_done += 1
+                        if progress:
+                            progress(N, n_done, len(idxs))
         if beam_fh is not None:
             beam_fh.close()
         if checkpoint:
@@ -268,6 +271,9 @@ def main(argv=None):
     ap.add_argument("--checkpoint", help="bucket-resume journal path")
     ap.add_argument("--fallback-workers", dest="workers", type=int,
                     help="CPU-parity refold pool size (default: all cores)")
+    ap.add_argument("--engine", choices=("torch", "cpu"), default="torch",
+                    help="'cpu' folds every bucket on the sequential "
+                         "parity engine through the process pool (no card)")
     ap.add_argument("--save-beams", dest="save_beams",
                     help="jsonl path: full saved beam per sequence, for "
                          "offline best-of-k re-scoring")
@@ -294,7 +300,8 @@ def main(argv=None):
                     batch=args.batch, best_of_k=args.best_of_k,
                     progress=progress, checkpoint=args.checkpoint,
                     save_beams=args.save_beams, stats=stats,
-                    workers=args.workers, device=args.device)
+                    workers=args.workers, engine=args.engine,
+                    device=args.device)
     dt = time.time() - t0
     manifest = dict(argv=vars(args), n_records=len(records),
                     elapsed_s=round(dt, 1), **stats)

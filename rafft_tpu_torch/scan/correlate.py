@@ -10,15 +10,19 @@ auto direct/FFT method switch, so float noise (and therefore
 tie-ordering of equal peaks) matches the reference bit-for-bit.
 
 The numpy part of rafft_tpu/scan/correlate.py, kept as the port's own
-copy for the CPU parity engine.
+copy for the CPU parity engine, and correlate_fft: the batched FFT
+correlation of the fold engine (fold_jax._correlate's transform) on
+torch tensors.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 from scipy.signal import convolve as _sp_convolve
 
-from rafft_tpu_torch.scan.encode import forward_onehot, backward_weights
+from rafft_tpu_torch.scan.encode import (CHANNEL_CODES, backward_weights,
+                                         forward_onehot)
 
 
 def correlate_np(codes_region: np.ndarray, W: np.ndarray, pad: float = 1.0):
@@ -47,3 +51,24 @@ def top_lags(cor: np.ndarray, nb_mode: int):
     cor_l = [[i, c] for i, c in enumerate(cor)]
     cor_l.sort(key=lambda el: el[1])
     return [(int(i), c) for i, c in cor_l[::-1][:nb_mode]]
+
+
+def correlate_fft(W, rcodes):
+    """Raw correlation sums of regions by FFT: [..., N] codes (0-padded
+    past the region) -> float32 [..., 2N-1], entry k = sum over i + j = k
+    of W[rcodes[i], rcodes[j]].
+
+    Four channels (A, G, C, U): the one-hot of the codes against the
+    channel's pair weights of the codes, multiplied in the frequency
+    domain at length 2N (no wrap-around) and summed over channels after
+    the inverse transform, as fold_jax._correlate does.  The sums carry
+    float32 FFT noise; for integral weights the caller rounds them."""
+    N = rcodes.shape[-1]
+    Wt = torch.as_tensor(np.asarray(W, np.float32), device=rcodes.device)
+    ch = torch.as_tensor(CHANNEL_CODES, device=rcodes.device)
+    fwd = (rcodes[..., None, :] == ch[:, None]).to(torch.float32)
+    wen = Wt[ch.long()][:, rcodes.long()].movedim(0, -2)      # [..., 4, N]
+    F = 2 * N
+    conv = torch.fft.irfft(torch.fft.rfft(fwd, n=F) * torch.fft.rfft(wen, n=F),
+                           n=F)[..., : 2 * N - 1]
+    return conv.sum(-2)

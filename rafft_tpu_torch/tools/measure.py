@@ -34,12 +34,13 @@ Phases (each prints lines tagged with its name):
   kernel   - the wavefront kernel alone, device ms per call (CUDA events
              around 200 calls that were enqueued while the device was held
              busy; median and every value of `--passes` such runs) at each
-             bucket's step shape on a seeded layout and on one real step
-             (the inputs of the 4th step of a fold of the bucket's first
-             rows), with the bytes, cells and the bound of those inputs
-             (wavefront_work); the real step's tensors must keep the
-             kernel's layout contract; beside them the time of a zero_()
-             of the seven tables' bytes;
+             bucket's step shape (128 to 4096 at K=50, and 128 at K=200)
+             on a seeded layout and, where the journal has rows of the
+             bucket (up to 1024), on one real step (the inputs of the 4th
+             step of a fold of the bucket's first rows), with the bytes,
+             cells and the bound of those inputs (wavefront_work); the
+             real step's tensors must keep the kernel's layout contract;
+             beside them the time of a zero_() of the seven tables' bytes;
   walk     - the wavefront kernel on synthetic layouts that separate its
              costs, device ms per call at the 128, 512 and 1024 shapes:
              every region empty (stores alone), one region of N/4, N/2 and
@@ -72,7 +73,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 JOURNAL = os.path.join(ROOT, "benchmarks", "artifacts", "beams_100n50.jsonl.gz")
-BUCKETS = (128, 256, 512, 1024)
+BUCKETS = (128, 256, 512, 1024, 2048, 4096)
 # stages of FoldEngine.step, wrapped from outside in the profile phase
 STAGES = ("_candidate_delta", "_children", "eval_pt", "analyze_pt", "_regions",
           "_top_lags", "_member", "_first_occurrence", "_combo_pt",
@@ -116,6 +117,13 @@ def nested_tables(rng, count, N, nmin, nmax):
     return codes, pts, ns
 
 
+def seeded_sequence(seed, nmin, nmax):
+    """A random RNA sequence of nmin..nmax nt from numpy's default_rng."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(nmin, nmax + 1))
+    return "".join("ACGU"[c] for c in rng.integers(0, 4, n))
+
+
 def region_layouts(rng, rows, R, N, nmin, nmax):
     """Engine-valid region layouts: each beam row's unpaired positions of
     a random sequence of nmin..nmax nt split into up to R ascending
@@ -144,10 +152,17 @@ def region_layouts(rng, rows, R, N, nmin, nmax):
     return rcodes, rpos, mlen
 
 
-# (N, batch, R, sequence lengths): the fold step's shapes in each bucket
-KERNEL_SHAPES = ((128, 16, 16, (60, 120)), (256, 16, 16, (129, 256)),
-                 (512, 8, 16, (257, 512)), (1024, 4, 32, (513, 780)))
+# (N, batch, R, sequence lengths, K): the fold step's shapes in each bucket
+# at K=50 (beam rows = batch x K: 800, 800, 400, 200, 100, 50) and in the
+# 128 bucket at K=200 (3,200 rows)
 K_BEAM = 50
+KERNEL_SHAPES = ((128, 16, 16, (60, 120), K_BEAM),
+                 (256, 16, 16, (129, 256), K_BEAM),
+                 (512, 8, 16, (257, 512), K_BEAM),
+                 (1024, 4, 32, (513, 780), K_BEAM),
+                 (2048, 2, 32, (1100, 2000), K_BEAM),
+                 (4096, 1, 32, (2049, 3000), K_BEAM),
+                 (128, 16, 16, (60, 120), 200))
 
 # what the bound takes of the card (NVIDIA's H100 SXM data sheet): 3.35
 # TB/s of device memory; 67 TFLOP/s float32 counts a fused multiply-add
@@ -166,24 +181,25 @@ def kernel_bound(work):
     return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations", b_ms, o_ms
 
 
-def seeded_kernel_args(N, nb, R, lens, seed, dev):
-    """The wavefront wrapper's five tensors [nb, K_BEAM, R, ...] on a
-    seeded layout, with the engine's Zobrist draws."""
+def seeded_kernel_args(N, nb, R, lens, seed, dev, K=K_BEAM):
+    """The wavefront wrapper's five tensors [nb, K, R, ...] on a seeded
+    layout, with the engine's Zobrist draws."""
     z1, z2 = np.random.default_rng(0xA5F7).integers(
         1, 2**32 - 1, (2, N + 1), dtype=np.uint64).astype(np.uint32).view(np.int32)
-    rc, rp, ml = region_layouts(np.random.default_rng(seed), nb * K_BEAM, R,
+    rc, rp, ml = region_layouts(np.random.default_rng(seed), nb * K, R,
                                 N, *lens)
     rpc = np.clip(rp, 0, N)
-    shape = (nb, K_BEAM)
+    shape = (nb, K)
     return [torch.as_tensor(x.reshape(shape + x.shape[1:]), device=dev)
             for x in (rc, rp, ml, z1[rpc], z2[rpc])]
 
 
-def capture_kernel_call(eng, seqs, call_no=4, every=None):
+def capture_kernel_call(eng, seqs, call_no=4, every=None, out=None):
     """Fold `seqs` on `eng` and return the arguments (tensors cloned) of
     the call_no-th call of the wavefront wrapper: one real fold step.
     `every`, if given, is called with the arguments of each call (say
-    wavefront.check_layout, to hold every step to the layout contract)."""
+    wavefront.check_layout, to hold every step to the layout contract);
+    `out`, if given, is a list that receives what run_stream yields."""
     from rafft_tpu_torch.engine import fold_torch as FT
     real, calls, kept = FT.wavefront_tables, [], []
 
@@ -198,13 +214,71 @@ def capture_kernel_call(eng, seqs, call_no=4, every=None):
 
     FT.wavefront_tables = spy
     try:
-        for _ in eng.run_stream(seqs):
-            pass
+        for item in eng.run_stream(seqs):
+            if out is not None:
+                out.append(item)
     finally:
         FT.wavefront_tables = real
     if not kept:
         raise AssertionError(f"the fold took fewer than {call_no} steps")
     return kept[0]
+
+
+STEP_KEYS = ("pt", "energy", "active", "rorder", "seen_h1", "seen_h2",
+             "seen_cnt", "done", "cplx_dropped", "enum_suspect")
+
+
+def lag_ranks(eng, state):
+    """The lag order that FoldEngine.step gives the regions of `state` at
+    non-integral weights: (lags [B,K,R,M], correlation [B,K,R,2N-1]),
+    on the engine's device."""
+    from rafft_tpu_torch.energy.eval_torch import analyze_pt, take
+    from rafft_tpu_torch.engine import fold_torch as FT
+    cfg, B = eng.cfg, eng.B
+    K, N = cfg.K, cfg.N
+    codes, pt, n = state["codes"], state["pt"], state["n"]
+    loops = analyze_pt(eng.dp, codes[:, None].expand(B, K, N), pt,
+                       n[:, None].expand(B, K))
+    rpos, _, _, mlen = FT._regions(cfg, pt, loops["enclose"],
+                                   state["rorder"], n)
+    rcodes = torch.where(rpos < N, take(codes, rpos.clamp(0, N - 1)), 0)
+    cor = FT._correlate(cfg, eng.W, rcodes, mlen, False)
+    return FT._top_lags(cfg, cor)[0], cor
+
+
+def first_difference_is_a_tie(eng_a, eng_b, seqs, tol):
+    """Fold `seqs` on two engines of one configuration (say the card and
+    the CPU) in lock-step: every step starts both from eng_a's state.
+    Returns None when every step gives equal states.  Otherwise the first
+    differing step must be explained by the correlation's float32 noise:
+    the two engines' lag ranks differ there, and every differing rank
+    swaps two lags whose correlations (eng_a's) differ by less than
+    `tol`.  Returns (step, ranks swapped, largest gap) then, and raises
+    AssertionError for any other difference."""
+    st = eng_a.init_state(seqs)
+    for step in range(eng_a.cfg.max_steps):
+        if bool(st["done"].all()):
+            break
+        nxt_a = eng_a.step(st)
+        st_b = {k: v.to(eng_b.device) for k, v in st.items()}
+        nxt_b = eng_b.step(st_b)
+        if all(torch.equal(nxt_a[k].cpu(), nxt_b[k].cpu()) for k in STEP_KEYS):
+            st = nxt_a
+            continue
+        lags_a, cor_a = (x.cpu() for x in lag_ranks(eng_a, st))
+        lags_b = lag_ranks(eng_b, st_b)[0].cpu()
+        swapped = lags_a != lags_b
+        if not bool(swapped.any()):
+            raise AssertionError(f"step {step} differs between {eng_a.device} "
+                                 f"and {eng_b.device} although the lag ranks "
+                                 f"agree")
+        gap = (cor_a.gather(-1, lags_a.long())
+               - cor_a.gather(-1, lags_b.long())).abs()[swapped].max().item()
+        if not gap < tol:
+            raise AssertionError(f"step {step}: lag ranks differ by {gap}, "
+                                 f"not by a tie (tolerance {tol})")
+        return step, int(swapped.sum()), gap
+    return None
 
 
 def phase_kernel(rows_all, passes):
@@ -213,22 +287,27 @@ def phase_kernel(rows_all, passes):
     from rafft_tpu_torch.engine.fold_torch import EngineConfig, weight_matrix
     dev = torch.device("cuda")
     W = weight_matrix(3.0, 2.0, 1.0)
-    for N, nb, R, lens in KERNEL_SHAPES:
-        cfg = EngineConfig(N=N, K=K_BEAM, R=R)
+    for N, nb, R, lens, K in KERNEL_SHAPES:
+        cfg = EngineConfig(N=N, K=K, R=R)
         dp = ET.device_params(cfg.temp, N, dev)
-        tensors = seeded_kernel_args(N, nb, R, lens, 1, dev)
-        seeded = (cfg, WT.small_tables(dp, W, dev), *tensors)
-        eng = _engine(N)
-        rows = bucket_rows(rows_all, N, eng.B)[: eng.B]
-        real = capture_kernel_call(eng, [r["seq"] for r in rows],
-                                   every=WT.check_layout)
+        tensors = seeded_kernel_args(N, nb, R, lens, 1, dev, K)
+        cases = [("seeded", (cfg, WT.small_tables(dp, W, dev), *tensors))]
+        # a real step where the journal has rows of the bucket (its
+        # longest sequence has 780 nt); chip_smoke.py's long phase times
+        # real steps of the 2048 and 4096 buckets
+        rows = bucket_rows(rows_all, N, nb)[:nb]
+        if rows:
+            eng = _engine(N, K)
+            cases.append(("real step", capture_kernel_call(
+                eng, [r["seq"] for r in rows], every=WT.check_layout)))
+            del eng
         # what the card takes to store the tables' bytes and nothing else
         fill = torch.empty(7 * 2 * N * tensors[2].numel(), dtype=torch.int32,
                            device=dev)
         log(f"[kernel] N={N}: zero_() of the seven tables' {fill.numel() * 4 / 1e6:.1f} "
             f"MB: {event_ms(fill.zero_, 200, queued=True):.4f} ms")
         del fill
-        for what, args in (("seeded", seeded), ("real step", real)):
+        for what, args in cases:
             ms = [event_ms(lambda: WT.wavefront_tables(*args), 200, queued=True)
                   for _ in range(passes)]
             host = event_ms(lambda: WT.wavefront_tables(*args), 200)
@@ -259,7 +338,7 @@ def phase_walk():
         return lambda rows, R: [(slice(None), r, r * m, m)
                                 for r in range(per_row or R)]
 
-    for N, nb, R, _ in KERNEL_SHAPES[::2] + KERNEL_SHAPES[3:]:
+    for N, nb, R, _, _ in (KERNEL_SHAPES[0], *KERNEL_SHAPES[2:4]):
         rows = nb * K_BEAM
         cfg = EngineConfig(N=N, K=K_BEAM, R=R)
         tabs = WT.small_tables(ET.device_params(cfg.temp, N, dev), W, dev)
@@ -379,10 +458,11 @@ def phase_headline(rows_all, passes):
             f"({len(rows) / secs:.3f} seq/s)")
 
 
-def _engine(N):
+def _engine(N, K=K_BEAM):
+    """The sweep's engine of bucket N at -n 100 -ms 50, or -n 200 -ms 200."""
     from rafft_tpu_torch.engine.fold_torch import FoldEngine
     from rafft_tpu_torch.parallel.sweep import bucket_batch, bucket_config
-    return FoldEngine(bucket_config(N, 100, 50, 1000), B=bucket_batch(16, N),
+    return FoldEngine(bucket_config(N, max(100, K), K, 1000), B=bucket_batch(16, N),
                       device="cuda")
 
 

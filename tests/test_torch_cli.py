@@ -31,7 +31,42 @@ def test_cli_stdout_matches_reference(flags, capsys):
 
 
 def test_cli_non_integral_weights_exit_nonzero(capsys):
-    with pytest.raises(SystemExit) as exc:
-        TCLI.main(["--device", "cpu", "-s", README_SEQ, "-gc", "2.5"])
-    assert exc.value.code not in (0, None)
-    assert "FFT" in str(exc.value.code)
+    """Non-integral weights made the port's CLI exit nonzero before the
+    FFT correlation was ported; the same call now prints what the
+    reference CLI prints."""
+    flags = ["-s", README_SEQ, "-gc", "2.5"]
+    JCLI.main(flags)
+    want = capsys.readouterr().out
+    TCLI.main(["--device", "cpu", *flags])
+    assert capsys.readouterr().out == want and len(want.splitlines()) == 2
+
+
+NON_INTEGRAL = ["-gc", "2.5", "-au", "1.7", "-gu", "0.8"]
+
+
+@pytest.mark.parametrize("flags,port_flags", [
+    (["-ms", "5", "--nono"], []),
+    (["-ms", "3", "--nono", "--bench"], []),
+    (["-ms", "5", "--traj"], ["--engine", "cpu"]),
+    (["-ms", "5", "--bench", *NON_INTEGRAL], ["--engine", "cpu"]),
+    (["-ms", "5", "--traj", *NON_INTEGRAL], ["--engine", "torch"]),
+    (["-ms", "5", "--nono", *NON_INTEGRAL], []),
+])
+def test_cli_engines_and_weights_match_reference(flags, port_flags, capsys):
+    """--nono, --engine cpu and non-integral weights: stdout equal to the
+    reference CLI's (whose default engine is its CPU oracle)."""
+    JCLI.main(["-s", README_SEQ, *flags])
+    want = capsys.readouterr().out
+    TCLI.main(["--device", "cpu", "-s", README_SEQ, *flags, *port_flags])
+    got = capsys.readouterr().out
+    assert got == want
+    if "--nono" in flags:
+        assert "Full Tree" in got
+
+
+def test_cli_engine_choices():
+    args = TCLI.parse_arguments(["-s", "ACGU"])
+    assert args.engine == "torch" and not args.nono
+    assert TCLI.parse_arguments(["-s", "ACGU", "--engine", "cpu"]).engine == "cpu"
+    with pytest.raises(SystemExit):
+        TCLI.parse_arguments(["-s", "ACGU", "--engine", "jax"])

@@ -107,15 +107,37 @@ def test_region_overflow_flagged():
 
 
 def test_non_integral_weights_refused():
-    with pytest.raises(NotImplementedError):
-        FT.FoldEngine(FT.EngineConfig(N=32, K=2, M=8, gc_wei=2.5), B=1,
-                      device="cpu")
+    """Non-integral pair weights were refused before the FFT correlation
+    was ported; the same constructor call now gives an engine that folds
+    to the CPU oracle's beam (tests/test_torch_weights.py holds the path
+    against the JAX engine)."""
+    cfg = FT.EngineConfig(N=32, K=2, M=8, gc_wei=2.5)
+    eng = FT.FoldEngine(cfg, B=1, device="cpu")
+    assert not eng.integral
+    seq = "GGGAAACCCAAAGGGAAACCC"
+    beams, _ = eng.run([seq])
+    want = [(s.str_struct, s.energy)
+            for s in cpu_fold(seq, nb_mode=8, max_stack=2, max_branch=1000,
+                              gc_wei=2.5)]
+    assert beams[0] == want and want[0][1] < 0
 
 
 @pytest.mark.parametrize("n", [1025, 4096])
 def test_long_sequences_refused(n):
-    """Past 1024 nt the JAX engine folds at N=2048/4096; the port refuses
-    them, naming the queue that holds that work."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FT.fold_one("GC" * (n // 2) + "A" * (n % 2), nb_mode=10,
-                    max_stack=2, device="cpu")
+    """Sequences past 1024 nt were refused before the 2048/4096 buckets
+    were ported; now fold_one's engine for them is built (N = 2048 and
+    4096, R = 32) and holds the sequence.  The fold itself takes minutes
+    on the CPU at these sizes: tests/test_torch_long2048.py folds a cut
+    configuration, chip_smoke.py the full ones on the card.  Past 4096
+    the engine refuses with a ValueError."""
+    seq = "GC" * (n // 2) + "A" * (n % 2)
+    N = 1 << int(np.ceil(np.log2(n)))
+    assert N == (2048 if n == 1025 else 4096) and N <= FT.MAX_N
+    cfg = FT.EngineConfig(N=N, K=2, M=10, R=32)
+    eng = FT.FoldEngine(cfg, B=1, device="cpu")
+    st = eng.init_state([seq])
+    assert int(st["n"][0]) == n and st["pt"].shape == (1, 2, N)
+    assert eng.Z1.shape == (N + 1,) and eng.wtabs.SE.shape == (625,)
+    assert bool(st["active"][0, 0]) and not bool(st["done"][0])
+    with pytest.raises(ValueError, match="4096"):
+        FT.FoldEngine(FT.EngineConfig(N=8192, K=2, M=10), B=1, device="cpu")

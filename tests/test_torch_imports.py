@@ -25,6 +25,14 @@ res = fold_one("GGGAAACCCAAAGGGAAACCC", nb_mode=8, max_stack=2,
                max_branch=16, device="cpu")
 assert res and res[0].energy < 0, res
 assert wavefront.LAUNCHES == 0
+# non-integral weights (the FFT correlation) and the tree-keeping engine
+res_w = fold_one("GGGAAACCCAAAGGGAAACCC", nb_mode=8, max_stack=2,
+                 max_branch=16, gc_wei=2.5, device="cpu")
+assert res_w and res_w[0].energy < 0, res_w
+from rafft_tpu_torch.engine import fold_nono
+tree, root = fold_nono.fold("GGGAAACCCAAAGGGAAACCC", 8, 2, 16)
+assert tree[0].str_struct == res[0].str_struct and "level:1" in str(root)
+assert sweep.bucket_config(4096, 200, 200, 1000).K == 200
 from rafft_tpu_torch.engine import fold_cpu
 beam = fold_cpu.fold("GGGAAACCCAAAGGGAAACCC", nb_mode=8, max_stack=2, max_branch=16)
 assert [s.str_struct for s in beam] == [s.str_struct for s in res], beam

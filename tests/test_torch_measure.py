@@ -80,3 +80,68 @@ def test_trace_stats(tmp_path):
     assert stages["eval_pt"] == pytest.approx((5.0, 0.15, 2))
     assert stages["_regions"] == pytest.approx((1.0, 0.01, 1))
     assert set(stages) == {"eval_pt", "_regions"}
+
+
+def test_seeded_sequence():
+    a = MS.seeded_sequence(2048, 1100, 2000)
+    assert a == MS.seeded_sequence(2048, 1100, 2000) and set(a) == set("ACGU")
+    assert 1100 <= len(a) <= 2000 and a != MS.seeded_sequence(2049, 1100, 2000)
+
+
+def test_kernel_shapes_cover_every_bucket_and_k200():
+    from rafft_tpu_torch.parallel.sweep import (DEFAULT_BUCKETS, bucket_batch,
+                                                bucket_config)
+    k50 = [s for s in MS.KERNEL_SHAPES if s[4] == 50]
+    assert tuple(s[0] for s in k50) == DEFAULT_BUCKETS
+    for N, nb, R, lens, K in MS.KERNEL_SHAPES:
+        cfg = bucket_config(N, max(100, K), K, 1000)
+        assert (nb, R) == (bucket_batch(16, N), cfg.R) and lens[1] <= N
+    assert MS.KERNEL_SHAPES[-1][::4] == (128, 200)
+    rows = {(s[0], s[4]): s[1] * s[4] for s in MS.KERNEL_SHAPES}
+    assert rows[(2048, 50)] == 100 and rows[(4096, 50)] == 50
+    assert rows[(128, 200)] == 3200
+
+
+def test_first_difference_is_a_tie(monkeypatch):
+    """Two engines of one configuration in lock-step: equal steps give
+    None; a step that differs is accepted only when the lag ranks differ
+    by less than the tolerance."""
+    import torch
+    from rafft_tpu_torch.engine import fold_torch as FT
+    torch.set_num_threads(1)
+    cfg = FT.EngineConfig(N=32, K=3, R=4, M=12, V=32, CPLX=16, S=128,
+                          max_branch=32, max_steps=6, gc_wei=2.5, au_wei=1.7,
+                          gu_wei=0.8)
+    a = FT.FoldEngine(cfg, B=1, device="cpu")
+    b = FT.FoldEngine(cfg, B=1, device="cpu")
+    seqs = ["GGGAAACCCAAAGGGAAACCCUUUGGG"]
+    assert MS.first_difference_is_a_tie(a, b, seqs, 2e-5) is None
+    lags, cor = MS.lag_ranks(a, a.init_state(seqs))
+    assert lags.shape == (1, 3, 4, 12) and cor.shape == (1, 3, 4, 63)
+    assert torch.equal(lags[0, 0, 0, :1], cor[0, 0, 0].argmax(-1, True).int())
+
+    # engine b ranks its lags by another correlation: noise of `scale`
+    real = FT._correlate
+
+    def noisy(scale):
+        def fn(cfg_, W, rcodes, mlen, integral):
+            cor = real(cfg_, W, rcodes, mlen, integral)
+            g = torch.Generator().manual_seed(0)
+            noise = torch.rand(cor.shape, generator=g) * scale
+            return torch.where(cor > FT.NEG / 2, cor + noise, cor)
+        return fn
+
+    class Noisy(FT.FoldEngine):
+        scale = 0.0
+
+        def step(self, state):
+            monkeypatch.setattr(FT, "_correlate", noisy(self.scale))
+            try:
+                return super().step(state)
+            finally:
+                monkeypatch.setattr(FT, "_correlate", real)
+
+    b = Noisy(cfg, B=1, device="cpu")
+    b.scale = 0.5          # reorders lags across real gaps
+    with pytest.raises(AssertionError, match="agree|not by a tie"):
+        MS.first_difference_is_a_tie(a, b, seqs, 2e-5)

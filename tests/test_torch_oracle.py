@@ -19,6 +19,7 @@ from rafft_tpu import struct as JSt
 from rafft_tpu.energy import eval_np as JE
 from rafft_tpu.energy import params as JP
 from rafft_tpu.engine import fold_cpu as JF
+from rafft_tpu.engine import fold_nono as JN
 from rafft_tpu.scan import encode as JEnc
 from rafft_tpu_torch import scoring as PS
 from rafft_tpu_torch import struct as PSt
@@ -28,6 +29,7 @@ from rafft_tpu_torch.energy import eval_np as PE
 from rafft_tpu_torch.energy import eval_torch as ET
 from rafft_tpu_torch.energy import params as PP
 from rafft_tpu_torch.engine import fold_cpu as PF
+from rafft_tpu_torch.engine import fold_nono as PN
 from rafft_tpu_torch.parallel import sweep as PSw
 from rafft_tpu_torch.scan import encode as PEnc
 
@@ -137,6 +139,19 @@ def test_fold_cpu_equal(k, max_stack):
     assert PF.EVALUATOR in ("native", "numpy")
 
 
+@pytest.mark.parametrize("weights", [(3.0, 2.0, 1.0), (2.5, 1.7, 0.8)])
+@pytest.mark.parametrize("k", range(len(SEQS)))
+def test_fold_nono_equal(k, weights):
+    """The tree-keeping engine: same structures, energies and printed
+    tree from the port's copy and the original."""
+    want, wroot = JN.fold(SEQS[k], 50, 5, 200, 3, 0.0, False, 37.0, *weights)
+    got, groot = PN.fold(SEQS[k], 50, 5, 200, 3, 0.0, False, 37.0, *weights)
+    rows = lambda beam: [(s.str_struct, s.energy, sorted(s.bpList))
+                         for s in beam]
+    assert rows(got) == rows(want)
+    assert str(groot) == str(wroot) and "level:1" in str(groot)
+
+
 def test_native_evaluator_equals_numpy():
     if shutil.which("g++") is None:
         pytest.skip("needs g++: the native evaluator is built at first use")
@@ -186,7 +201,7 @@ def test_convert_from_both_parameter_sources(temp):
 
 def test_sweep_helpers_equal():
     from rafft_tpu.parallel import sweep as JSw
-    assert PSw.JAX_BUCKETS == JSw.DEFAULT_BUCKETS
+    assert PSw.DEFAULT_BUCKETS == JSw.DEFAULT_BUCKETS
     assert PSw.FLAG_NAMES == JSw.FLAG_NAMES
     for n in (1, 128, 129, 1024, 1025, 5000):
         assert PSw.bucket_of(n, JSw.DEFAULT_BUCKETS) == \

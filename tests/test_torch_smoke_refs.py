@@ -10,10 +10,20 @@ are committed in rafft_tpu_torch/testdata/chip_smoke_refs.json:
   cli       the reference CLI's stdout (CPU engine) for the README
             sequence at -ms 20 --traj;
   oracle    fold_cpu's beams (-n 100 -ms 50) for the journal rows where
-            the committed journal differs from the reference semantics.
+            the committed journal differs from the reference semantics;
+  weights   the README sequence through the JAX engine on the CPU
+            (fold_jax.fold_one, its FFT correlation path) at non-integral
+            pair weights, max_stack 5 and 20, trajectory and final beam;
+  cli_nono  the reference CLI's stdout for the README sequence at
+            -ms 5 --nono (the tree-keeping engine and its printed tree);
+  long      two seeded sequences of 1,100 to 2,000 nt
+            (tools/measure.py:seeded_sequence) with fold_cpu's beams at
+            the cut configuration -n 20 -ms 3 --max_branch 100.
 
 Each test recomputes one part from the JAX package and asserts that the
-committed file still holds it.  To write the file anew:
+committed file still holds it (the max_stack 20 part of `weights` is
+checked in tests/test_torch_smoke_refs_w20.py: each costs one compile of
+the JAX engine).  To write the file anew:
 
     JAX_PLATFORMS=cpu python tests/test_torch_smoke_refs.py --write
 """
@@ -33,6 +43,7 @@ sys.path.insert(0, ROOT)
 
 from rafft_tpu.cli import fold_cli as JCLI  # noqa: E402
 from rafft_tpu.engine.fold_cpu import fold as cpu_fold  # noqa: E402
+from rafft_tpu_torch.tools.measure import seeded_sequence  # noqa: E402
 
 REFS = os.path.join(ROOT, "rafft_tpu_torch", "testdata",
                     "chip_smoke_refs.json")
@@ -43,6 +54,12 @@ README_SEQ = ("GGGUUUGCGGUGUAAGUGCAGCCCGUCUUACACCGUGCGGCACAGGCACUAGUACUGAUGU"
 CLI_ARGS = ["-s", README_SEQ, "-ms", "20", "--traj"]
 # unflagged 128-bucket rows whose journal beam is not fold_cpu's
 ORACLE_ROWS = (443, 567, 947, 1262)
+WEIGHTS = dict(gc_wei=2.5, au_wei=1.7, gu_wei=0.8)
+NONO_ARGS = ["-s", README_SEQ, "-ms", "5", "--nono"]
+# (seed, shortest, longest) of the seeded long sequences, and their cut
+# configuration
+LONG_SEQS = ((2048, 1100, 2000), (2049, 1100, 2000))
+LONG_CUT = dict(nb_mode=20, max_stack=3, max_branch=100)
 
 
 def _rows(structs):
@@ -55,11 +72,27 @@ def ref_fold_one(ms):
     return dict(traj=[_rows(s) for s in traj], final=_rows(final))
 
 
-def ref_cli():
+def ref_cli(args=CLI_ARGS):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        JCLI.main(CLI_ARGS)
-    return dict(args=CLI_ARGS[2:], stdout=buf.getvalue())
+        JCLI.main(args)
+    return dict(args=args[2:], stdout=buf.getvalue())
+
+
+def ref_weights(ms):
+    """The JAX engine on the CPU at non-integral weights."""
+    from rafft_tpu.engine.fold_jax import fold_one
+    final, traj = fold_one(README_SEQ, nb_mode=100, max_stack=ms,
+                           max_branch=1000, traj=True, **WEIGHTS)
+    return dict(traj=[_rows(s) for s in traj], final=_rows(final))
+
+
+def ref_long(seed, nmin, nmax):
+    seq = seeded_sequence(seed, nmin, nmax)
+    beam = [[s.str_struct, float(np.float32(s.energy))]
+            for s in cpu_fold(seq, **LONG_CUT)]
+    return dict(seed=seed, nmin=nmin, nmax=nmax, seq=seq, cut=LONG_CUT,
+                beam=beam)
 
 
 def ref_oracle(row):
@@ -75,7 +108,11 @@ def build():
     return dict(readme_seq=README_SEQ,
                 fold_one={str(ms): ref_fold_one(ms) for ms in (5, 20)},
                 cli=ref_cli(),
-                oracle=[ref_oracle(i) for i in ORACLE_ROWS])
+                oracle=[ref_oracle(i) for i in ORACLE_ROWS],
+                weights=dict(args=WEIGHTS, fold_one={
+                    str(ms): ref_weights(ms) for ms in (5, 20)}),
+                cli_nono=ref_cli(NONO_ARGS),
+                long=[ref_long(*a) for a in LONG_SEQS])
 
 
 @pytest.fixture(scope="module")
@@ -104,6 +141,23 @@ def test_oracle_refs(committed, k):
     # these rows are committed because the journal is not the reference
     # semantics there
     assert not row["flagged"] and row["beam"] != want["beam"]
+
+
+def test_weights_refs(committed):
+    assert committed["weights"]["args"] == WEIGHTS
+    assert committed["weights"]["fold_one"]["5"] == ref_weights(5)
+
+
+def test_cli_nono_refs(committed):
+    assert committed["cli_nono"] == ref_cli(NONO_ARGS)
+    assert "Full Tree" in committed["cli_nono"]["stdout"]
+
+
+@pytest.mark.parametrize("k", range(len(LONG_SEQS)))
+def test_long_refs(committed, k):
+    want = ref_long(*LONG_SEQS[k])
+    assert committed["long"][k] == want
+    assert 1100 <= len(want["seq"]) <= 2000 and want["beam"][0][1] < 0
 
 
 if __name__ == "__main__":

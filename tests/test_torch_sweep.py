@@ -10,6 +10,7 @@ their journal best structure standing in for the true one so that the
 scores are not trivial; nb_mode 20 and max_stack 3 keep the run short.
 """
 
+import csv
 import dataclasses
 import gzip
 import json
@@ -60,8 +61,14 @@ def _by_name(rows):
     return sorted(rows, key=lambda r: r["name"])
 
 
-def test_sweep_matches_jax_sweep(cpu_ref, tmp_path):
-    res, ckpt, beams, stats = _run(TS.sweep, tmp_path, "port", device="cpu")
+@pytest.fixture(scope="module")
+def port_run(tmp_path_factory):
+    return _run(TS.sweep, tmp_path_factory.mktemp("port"), "port",
+                device="cpu")
+
+
+def test_sweep_matches_jax_sweep(cpu_ref, port_run):
+    res, ckpt, beams, stats = port_run
     want_res, want_ckpt, want_beams, _ = cpu_ref
     assert res == want_res
     assert ckpt == want_ckpt
@@ -91,9 +98,43 @@ def test_sweep_refolds_flagged(cpu_ref, tmp_path, monkeypatch):
     assert strip(beams) == strip(want_beams)
 
 
-@pytest.mark.parametrize("N", [128, 256, 512, 1024])
-def test_bucket_config_matches_jax_sweep(N):
-    nb_mode, max_stack, max_branch = 100, 50, 1000
+def test_sweep_engine_cpu_matches_device_sweep(cpu_ref, port_run, tmp_path):
+    """engine="cpu": the whole bucket on the port's fold_cpu through the
+    pool, no engine built.  Result dicts, checkpoint and beams journal
+    equal those of the port's device sweep (no row is flagged there) and
+    of the JAX package's engine="cpu" sweep."""
+    res, ckpt, beams, stats = _run(TS.sweep, tmp_path, "cpu", engine="cpu",
+                                   device="no-such-device")
+    dev_res, dev_ckpt, dev_beams, dev_stats = port_run
+    assert dev_stats["n_fallback"] == 0
+    assert res == dev_res == cpu_ref[0]
+    assert ckpt == dev_ckpt == cpu_ref[1]
+    assert _by_name(beams) == _by_name(dev_beams) == _by_name(cpu_ref[2])
+    assert stats["n_fallback"] == 0 and stats["flag_causes"] == {}
+    assert stats["refold_evaluator"] in ("native", "numpy")
+    assert stats["buckets"] == {"128": dict(
+        n=6, secs=stats["buckets"]["128"]["secs"], batch=4)}
+    with pytest.raises(ValueError, match="engine"):
+        TS.sweep(_records(1), engine="jax", device="cpu")
+
+
+def test_sweep_cli_engine_flag(tmp_path):
+    """--engine cpu through main(): the results CSV and the manifest."""
+    src = tmp_path / "bench.csv"
+    with open(src, "w", newline="") as fh:
+        csv.writer(fh).writerows(_records(2))
+    out = tmp_path / "res.csv"
+    TS.main(["--csv", str(src), "--out", str(out), "--engine", "cpu",
+             "--device", "no-such-device", "-n", "20", "-ms", "3",
+             "--fallback-workers", "2"])
+    lines = out.read_text().splitlines()
+    assert lines[0].startswith("seq,len_seq,struct") and len(lines) == 3
+    manifest = json.load(open(f"{out}.manifest.json"))
+    assert manifest["argv"]["engine"] == "cpu" and manifest["n_records"] == 2
+    assert manifest["n_fallback"] == 0
+
+
+def _check_bucket_config(N, nb_mode, max_stack, max_branch):
     # rafft_tpu/parallel/sweep.py:167-186, as the JAX sweep builds it
     R = 16 if N <= 512 else 32
     want = FJ.EngineConfig(N=N, K=max_stack, M=min(nb_mode, 2 * N - 1), R=R,
@@ -103,23 +144,47 @@ def test_bucket_config_matches_jax_sweep(N):
                            S=max(16384, 32 * max_stack))
     got = TS.bucket_config(N, nb_mode, max_stack, max_branch)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    assert TS.bucket_batch(16, N) == {128: 16, 256: 16, 512: 8, 1024: 4}[N]
+    assert TS.bucket_batch(16, N) == JS.bucket_batch(16, N) == {
+        128: 16, 256: 16, 512: 8, 1024: 4, 2048: 2, 4096: 1}[N]
+    # the engine takes the configuration (nothing is folded here)
+    assert FT.FoldEngine(got, B=1, device="cpu").cfg is got
+
+
+@pytest.mark.parametrize("N", [128, 256, 512, 1024, 2048, 4096])
+def test_bucket_config_matches_jax_sweep(N):
+    _check_bucket_config(N, 100, 50, 1000)
+
+
+@pytest.mark.parametrize("N", [128, 256, 512, 1024, 2048, 4096])
+def test_bucket_config_k200_matches_jax_sweep(N):
+    """-n 200 -ms 200, the reference's second published configuration."""
+    _check_bucket_config(N, 200, 200, 1000)
 
 
 def test_long_buckets_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TS.bucket_config(2048, 100, 50, 1000)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TS.sweep(_records(1), buckets=(128, 2048), device="cpu")
+    """The 2048/4096 buckets were refused before they were ported; the
+    same calls now give the JAX sweep's configuration and fold."""
+    assert TS.DEFAULT_BUCKETS == JS.DEFAULT_BUCKETS
+    cfg = TS.bucket_config(2048, 100, 50, 1000)
+    assert (cfg.N, cfg.R, cfg.W, cfg.CPLX, cfg.M) == (2048, 32, 24, 1024, 100)
+    res = TS.sweep(_records(1), buckets=(128, 2048), device="cpu", **ARGS)
+    assert res[0]["struct"].count("(") > 0
 
 
 @pytest.mark.parametrize("n", [1025, 4096])
 def test_long_records_refused(n):
-    """A record that only the JAX sweep's 2048/4096 buckets would hold
-    raises before anything is folded, instead of being left out."""
-    recs = _records(1) + [("GC" * (n // 2) + "A" * (n % 2), ".", "long")]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TS.sweep(recs, device="cpu")
+    """A record of 1025 to 4096 nt was refused before the 2048/4096
+    buckets were ported; now it lands in its bucket and is folded (here
+    by the CPU parity engine: the batched engine takes minutes on the CPU
+    at N >= 2048, see tests/test_torch_long2048.py)."""
+    seq = "GGGGAAAACCCC" * (n // 12) + "A" * (n % 12)
+    seen = []
+    res = TS.sweep([(seq, "." * n, "long")], nb_mode=5, max_stack=1,
+                   max_branch=10, workers=1, engine="cpu",
+                   device="no-such-device",
+                   progress=lambda N, *a, **kw: seen.append(N))
+    assert set(seen) == {2048 if n == 1025 else 4096}
+    assert res[0]["len_seq"] == n and res[0]["nbp"] > 0 and res[0]["nrj"] < 0
 
 
 def test_records_past_jax_buckets_skipped(tmp_path):
