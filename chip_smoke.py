@@ -1,6 +1,6 @@
 """Drive the PyTorch port on one NVIDIA card and check it end to end.
 
-    python3 chip_smoke.py [--full]
+    python3 chip_smoke.py [--full] [--only phase,...]
 
 Phases (each raises on failure; the script exits nonzero and prints no
 result line):
@@ -91,6 +91,28 @@ result line):
   9. cli      - `python -m rafft_tpu_torch.cli.fold_cli --device cuda`
                 prints what the reference CLI prints with its CPU engine,
                 and with --nono the reference's tree-keeping output;
+ 9b. mfe      - the batched MFE DP (MfeEngine, mfe/mfe_torch.py) on the
+                first 16/16/16/16/8/4 journal rows of the MFE buckets
+                32/64/128/256/512/1024 (tools/bench_mfe.py's bucketing
+                and batch sizes: B=16, 4 at 1024): every structure and
+                energy equals the native C++ DP (mfe_fold) run here and,
+                on the committed rows (the README sequence and 8 journal
+                rows of the 128 bucket), the JAX package's batched DP.
+                Prints per bucket the seconds per batch (fill, and the
+                host's copies and tracebacks), seq/s, the peak and the
+                native DP's seconds on the same rows; and, from one
+                profiled batch at N=128 and N=1024, the device ops per
+                diagonal and per step of the exterior F loop;
+  9c. api     - the package root: rafft_tpu_torch.fold of the README
+                sequence at max_stack 5 and 20 with traj=True equals the
+                committed fold_cpu trajectories (a fold the engine flags
+                is refolded by fold_cpu: the count is printed), and its
+                -ms 20 trajectory printed as the fold CLI prints it
+                equals the committed JAX CLI output; kinetics() on that
+                output and `python -m rafft_tpu_torch.cli.kin_cli` on it
+                print the committed JAX kinetics CLI's stdout (expm at
+                -mt 30, eig at -mt 10); mfe_fold gives the committed MFE
+                rows;
  10. full     - with --full only: sweep() over all 2,294 journal rows,
                 the flagged ones refolded on the CPU; every beams-journal
                 row equals the committed journal or, on the rows where
@@ -99,11 +121,17 @@ result line):
                 evaluator the refold ran, which must be the native one.
                 Then sweep() over the two 23S rRNAs (the 4096 bucket, the
                 CPU refold of what the engine flags): the result rows
-                equal longtail.ckpt.jsonl.
+                equal longtail.ckpt.jsonl.  Then the MFE DP over all
+                2,294 journal rows through tools/bench_mfe.py's
+                mfe_records on the card, and over the two 23S rRNAs at
+                N=4096, B=1: every row equal to the native DP, run in a
+                process pool;
 The default run's earlier phases are uncut; what was cut to keep it short
-is in the new ones: one seeded layout and one timed call of the plain
+is in the later ones: one seeded layout and one timed call of the plain
 version at N=2048 and 4096, 16 and 4 rows in the k200 phase, one pass
-over each long fold.
+over each long fold, the first rows of each MFE bucket (all of them with
+--full), and the MFE profiles to a batch's first 128 diagonals (a
+diagonal issues the same ops at every d >= 8).
 The oracle's and the reference CLI's outputs come from
 rafft_tpu_torch/testdata/chip_smoke_refs.json, which
 tests/test_torch_smoke_refs.py holds against the JAX package on the CPU;
@@ -133,8 +161,9 @@ import time
 import numpy as np
 import torch
 
+import rafft_tpu_torch
 from rafft_tpu_torch import _build
-from rafft_tpu_torch.cli import fold_cli
+from rafft_tpu_torch.cli import fold_cli, kin_cli
 from rafft_tpu_torch.energy import eval_torch as ET
 from rafft_tpu_torch.energy.eval_np import eval_structure_int
 from rafft_tpu_torch.energy.params import encode_sequence, get_params
@@ -144,14 +173,16 @@ from rafft_tpu_torch.engine import wavefront as WT
 from rafft_tpu_torch.engine.fold_torch import (EngineConfig, FoldEngine,
                                                fold_one, fold_one_config,
                                                weight_matrix)
-from rafft_tpu_torch.parallel.sweep import (FLAG_NAMES, bucket_batch,
-                                            bucket_config, sweep)
+from rafft_tpu_torch.mfe import MfeEngine, mfe_fold
+from rafft_tpu_torch.parallel.sweep import bucket_batch, bucket_config, sweep
 from rafft_tpu_torch.native import native_oracle
-from rafft_tpu_torch.struct import pair_table
+from rafft_tpu_torch.struct import pair_table, parse_rafft_output
+from rafft_tpu_torch.tools.bench_mfe import mfe_bucket_batch, mfe_records
 from rafft_tpu_torch.tools.measure import (KERNEL_SHAPES, bucket_rows,
                                            capture_kernel_call, event_ms,
                                            first_difference_is_a_tie,
-                                           kernel_bound, nested_tables,
+                                           kernel_bound, mfe_bucket_rows,
+                                           mfe_profile, nested_tables,
                                            seeded_kernel_args,
                                            seeded_sequence)
 
@@ -171,6 +202,8 @@ GiB = 2 ** 30
 # kernel's raw diagonal sums against the plain version's
 COR_TOL = 1e-4
 COR_RAW_TOL = 1e-3
+# journal rows folded per MFE bucket in phase mfe
+MFE_ROWS = {32: 16, 64: 16, 128: 16, 256: 16, 512: 8, 1024: 4}
 # repeats make lags of equal pair content: where ties are likely
 TIE_SEQS = ["GCAU" * 11, "GGGAAACCCUUU" * 3 + "GGGAAACC", "GU" * 20,
             "ACGUUGCA" * 5]
@@ -252,11 +285,19 @@ def _kernel_vs_bound(tag, args, N, reps=200, real_step=False):
     the calls enqueued ahead) and print it beside the bound of those
     inputs.  The tensors of a real fold step must also keep the kernel's
     layout contract and give the plain version's tables."""
+    extra = {}
     if real_step:
         WT.check_layout(*args)
-        _tables_equal(args, f"{tag}, N={N}")
+        _tables_equal(args, f"{tag}, N={N}", timed=extra)
+        # what the card takes to store the seven tables' bytes alone
+        fill = torch.empty(7 * 2 * N * args[4].numel(), dtype=torch.int32,
+                           device="cuda")
+        extra["zero_ms"] = event_ms(fill.zero_, reps, queued=True)
+        del fill
         log(f"[{tag}] N={N}: the step's tensors keep the layout contract; "
-            f"7/7 tables equal the plain version")
+            f"7/7 tables equal the plain version ({extra['plain_ms']:.4f} ms "
+            f"for its one call); zero_() of the seven tables' bytes "
+            f"{extra['zero_ms']:.4f} ms")
     ms = event_ms(lambda: WT.wavefront_tables(*args), reps, queued=True)
     work = WT.wavefront_work(args[4], N)
     bound, by, b_ms, o_ms = kernel_bound(work)
@@ -269,7 +310,7 @@ def _kernel_vs_bound(tag, args, N, reps=200, real_step=False):
     return dict(N=N, shape=list(args[2].shape), layout=tag, ms=ms,
                 bound_ms=bound, bound_by=by, bytes=work["bytes"],
                 positions=work["positions"], cells=work["cells"], window_cells=work["window_cells"],
-                share_of_bound=bound / ms)
+                share_of_bound=bound / ms, **extra)
 
 
 @phase
@@ -587,10 +628,6 @@ def phase_buckets(rows_all):
     return launches, steps
 
 
-def _flag_names(flag):
-    return "+".join(c for b, c in FLAG_NAMES.items() if flag & b) or "none"
-
-
 def _fold_once(eng, seqs):
     """One run_stream over `seqs` with the launch count and the peak set
     to 0 just before it; every step's kernel tensors are held to the
@@ -660,7 +697,7 @@ def phase_k200(rows_all):
             f"equal {ckpt}, {len(refolded)} equal fold_cpu instead (rows "
             f"{refolded}); {n_flagged} flagged, of which {flagged_equal} give "
             f"the committed best row all the same; flags "
-            f"{[_flag_names(f) for f in flags]}; "
+            f"{[FT.flag_names(f) for f in flags]}; "
             f"{len(rows) / secs:.3f} seq/s ({secs:.3f} s for {len(rows)}, the "
             f"layout check inside); peak {peak / 2**20:.1f} MiB; wavefront "
             f"launches {n_launch}")
@@ -688,7 +725,7 @@ def phase_long(refs):
             raise AssertionError(f"{r['name']}: flag 0 but the best row "
                                  f"differs from longtail.ckpt.jsonl")
         log(f"[long] N=4096 {r['name']} ({len(r['seq'])} nt): flag {flag} "
-            f"({_flag_names(flag)}); " + (
+            f"({FT.flag_names(flag)}); " + (
                 "best row equals longtail.ckpt.jsonl" if not flag else
                 f"best {beam[0][1]:.2f} kcal/mol on the card, "
                 f"{r['nrj']:.2f} committed (CPU parity engine)"))
@@ -723,7 +760,7 @@ def phase_long(refs):
             n_eval += 1
         log(f"[long] N=2048 seed {refs['long'][i]['seed']} ({len(seq)} nt): "
             f"{len(beam)} beam entries, best {es[0]:.2f} kcal/mol; flag "
-            f"{flag} ({_flag_names(flag)})")
+            f"{flag} ({FT.flag_names(flag)})")
     log(f"[long] N=2048 B={eng.B}: {n_eval} beam energies equal "
         f"eval_structure_int, ascending; {len(seqs) / secs:.4f} seq/s "
         f"({secs:.3f} s for {len(seqs)}, {secs / launches[2048]:.3f} s a "
@@ -843,6 +880,153 @@ def phase_cli(refs):
 
 
 @phase
+def phase_mfe(rows_all, refs):
+    """The batched MFE DP on the card against the native DP (this
+    process) and the committed rows of the JAX package's batched DP."""
+    committed = {r["seq"]: (r["struct"], r["nrj"]) for r in refs["mfe"]["rows"]}
+    held = 0
+    MfeEngine(32, B=1, device="cuda").fold(["GGGAAACCC"])     # warm-up
+    for N, count in MFE_ROWS.items():
+        seqs = [r["seq"] for r in mfe_bucket_rows(rows_all, N, count)]
+        nb = min(mfe_bucket_batch(16, N), len(seqs))
+        eng = MfeEngine(N, B=nb, device="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        timing, got = {}, []
+        t0 = time.perf_counter()
+        for off in range(0, len(seqs), nb):
+            got += eng.fold(seqs[off:off + nb], timing=timing)
+        secs = time.perf_counter() - t0
+        rise = torch.cuda.max_memory_allocated() - base
+        t0 = time.perf_counter()
+        want = [mfe_fold(s) for s in seqs]
+        native = time.perf_counter() - t0
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        if bad:
+            raise AssertionError(f"mfe N={N}: rows {bad} differ from the "
+                                 f"native DP")
+        for s, res in zip(seqs, got):
+            if s in committed:
+                if res != committed[s]:
+                    raise AssertionError(f"mfe N={N}: a row differs from the "
+                                         f"committed JAX DP output")
+                held += 1
+        batches = -(-len(seqs) // nb)
+        log(f"[mfe] N={N} B={nb}: {len(seqs)}/{len(seqs)} rows "
+            f"({min(map(len, seqs))}-{max(map(len, seqs))} nt) equal the "
+            f"native DP; {secs / batches:.3f} s per batch ({timing['fill'] / batches:.3f} "
+            f"fill, {timing['host'] / batches:.3f} copies and tracebacks), "
+            f"{len(seqs) / secs:.3f} seq/s; peak rise {rise / 2**20:.1f} MiB "
+            f"(device peak {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+            f"MiB); native DP {native:.3f} s for the same rows")
+        if N in (128, 1024):
+            prof = mfe_profile(eng, seqs[:nb], diagonals=128)
+            log(f"[mfe] N={N} profiled batch of {nb}, its first "
+                f"{prof['steps']} diagonals: {prof['ops_per_diagonal']:.1f} "
+                f"device ops per diagonal, {prof['f_ops_per_step']:.1f} per F "
+                f"step; kernel {prof['kernel_ms']:.2f} ms, busy share "
+                f"{100 * prof['kernel_ms'] / prof['wall_ms']:.1f}% of its "
+                f"unprofiled wall ({prof['wall_ms']:.1f} ms)")
+        del eng
+        torch.cuda.empty_cache()
+    readme = refs["readme_seq"]
+    got = MfeEngine(128, B=1, device="cuda").fold([readme])[0]
+    if got != committed[readme] or got != mfe_fold(readme):
+        raise AssertionError("mfe: the README sequence differs")
+    held += 1
+    if held != len(committed):
+        raise AssertionError(f"mfe: {held} of the {len(committed)} committed "
+                             f"rows were folded")
+    log(f"[mfe] {held}/{len(committed)} committed rows of the JAX DP equal")
+
+
+def _same_kinetics(what, args, got, want):
+    """Kinetics CLI outputs agree: the same lines, each structure with its
+    energy, id and population as printed.  The lines are sorted by
+    population, so those whose populations print the same (0.000 above
+    all) may come in another order where another LAPACK rounds them
+    differently, and a population of -0.000 prints for 0.000."""
+    def parse(text):
+        rows = [line.split() for line in text.splitlines()]
+        return {int(r[3]): (r[0], float(r[1]), r[2]) for r in rows}, \
+            [float(r[1]) for r in rows]
+    (g, g_pops), (w, w_pops) = parse(got), parse(want)
+    if g != w or g_pops != w_pops:
+        diff = [(i, g.get(i), w[i]) for i in w if g.get(i) != w[i]][:5]
+        raise AssertionError(f"kinetics {args} ({what}) differs from the "
+                             f"committed JAX kinetics CLI output: "
+                             f"{len(g)} / {len(w)} lines; (id, got, want): "
+                             f"{diff}; populations in order equal: "
+                             f"{g_pops == w_pops}")
+
+
+def _rafft_text(seq, traj):
+    """A trajectory as the fold CLI prints it with --traj."""
+    lines = [seq]
+    for si, step in enumerate(traj):
+        lines.append("# {:-^20}".format(si))
+        lines += [f"{s.str_struct} {s.energy:6.1f}" for s in step]
+    return "\n".join(lines) + "\n"
+
+
+@phase
+def phase_api(refs):
+    """fold, kinetics, the kinetics CLI and mfe_fold of the package root."""
+    seq, refolds, texts = refs["readme_seq"], FT.REFOLDS, {}
+    WT.LAUNCHES = 0
+    for ms in (5, 20):
+        t0 = time.perf_counter()
+        final, traj = rafft_tpu_torch.fold(seq, 100, ms, 1000, traj=True,
+                                           device="cuda")
+        ref = refs["fold_one"][str(ms)]
+        if [_rows(s) for s in traj] + [_rows(final)] != ref["traj"] + [ref["final"]]:
+            raise AssertionError(f"fold ms={ms} differs from fold_cpu")
+        texts[ms] = _rafft_text(seq, traj)
+        log(f"[api] fold ms={ms} traj=True: {len(traj)} steps + final beam "
+            f"equal the committed fold_cpu ones ({time.perf_counter() - t0:.2f} s)")
+    launches = WT.LAUNCHES
+    if launches == 0:
+        raise AssertionError("fold never launched the wavefront kernel")
+    log(f"[api] {FT.REFOLDS - refolds} of the 2 fold calls refolded on the "
+        f"CPU; wavefront launches {launches}")
+    if texts[20] != refs["cli"]["stdout"]:
+        raise AssertionError("fold's -ms 20 trajectory differs from the "
+                             "committed JAX CLI output")
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = os.path.join(tmp, "rafft.out")
+        with open(path, "w") as fh:
+            fh.write(texts[20])
+        paths, _ = parse_rafft_output(path)
+        for k in refs["kin"]:
+            a = kin_cli.parse_arguments([path, *k["args"]])
+            equi = rafft_tpu_torch.kinetics(paths, a.max_time, a.n_steps,
+                                            method=a.method)[3]
+            equi.sort(key=lambda el: el[2])
+            text = "".join(f"{st} {pop:6.3f} {nrj:5.1f} {si:d}\n"
+                           for st, nrj, pop, si in equi)
+            cli = subprocess.run(
+                [sys.executable, "-m", "rafft_tpu_torch.cli.kin_cli", path,
+                 *k["args"]], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                capture_output=True, text=True, timeout=300)
+            if cli.returncode != 0:
+                raise AssertionError(f"kin_cli failed:\n{cli.stderr}")
+            for what, out in (("in process", text), ("kin_cli", cli.stdout)):
+                _same_kinetics(what, k["args"], out, k["stdout"])
+            log(f"[api] kinetics and kin_cli {' '.join(k['args'])}: "
+                f"{len(equi)} lines equal the JAX kinetics CLI's (as text: "
+                f"in process {text == k['stdout']}, CLI "
+                f"{cli.stdout == k['stdout']})")
+    for r in refs["mfe"]["rows"]:
+        if mfe_fold(r["seq"]) != (r["struct"], r["nrj"]):
+            raise AssertionError(f"mfe_fold differs on {r['name']}")
+    log(f"[api] mfe_fold: {len(refs['mfe']['rows'])} committed rows equal")
+    return launches
+
+
+@phase
 def phase_full(rows_all, refs):
     """sweep() over the whole journal, flagged folds refolded on the CPU."""
     records = [(r["seq"], "." * len(r["seq"]), r["name"]) for r in rows_all]
@@ -928,6 +1112,42 @@ def phase_full_long():
         f"{stats.get('refold_evaluator')}); wavefront launches {WT.LAUNCHES}")
 
 
+@phase
+def phase_full_mfe(rows_all):
+    """The MFE DP over the whole journal, then the two 23S rRNAs, against
+    the native DP in a process pool."""
+    ctx = __import__("multiprocessing").get_context("forkserver")
+    long = list(_ckpt_rows("longtail.ckpt.jsonl").values())
+    for what, rows in (("journal", rows_all), ("23S pair", long)):
+        records = [(r["seq"], "", r["name"]) for r in rows]
+        seqs = [r["seq"] for r in rows]
+        # the native DP first, so that its processes do not slow the
+        # host thread that drives the card
+        t0 = time.perf_counter()
+        with concurrent.futures.ProcessPoolExecutor(
+                os.cpu_count(), mp_context=ctx) as pool:
+            want = list(pool.map(mfe_fold, seqs, chunksize=8))
+        pool_secs = time.perf_counter() - t0
+        stats = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = mfe_records(records, "torch", 16, "cuda", stats=stats)
+        secs = time.perf_counter() - t0
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        if bad or len(got) != len(rows):
+            raise AssertionError(f"mfe {what}: rows {bad[:8]} differ from the "
+                                 f"native DP")
+        for N, st in sorted(stats.items()):
+            log(f"[full] mfe N={N}: {st['n']} rows, B={st['batch']}, "
+                f"{st['batches']} batches in {st['secs']:.3f} s "
+                f"({st['n'] / st['secs']:.3f} seq/s)")
+        log(f"[full] mfe {what}: {len(rows)}/{len(rows)} rows equal the native "
+            f"DP; {secs:.3f} s on the card ({len(rows) / secs:.3f} seq/s), "
+            f"peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; the "
+            f"native DP in a pool of {os.cpu_count()} processes: "
+            f"{pool_secs:.3f} s")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--full", action="store_true",
@@ -935,7 +1155,8 @@ def main(argv=None):
                          "rRNAs (several minutes)")
     ap.add_argument("--only", help="comma-separated phases to run after "
                     "device and build (kernel, fold_one, oracle, weights, "
-                    "headline, loops, buckets, k200, long, sweep, cli): a "
+                    "headline, loops, buckets, k200, long, sweep, cli, mfe, "
+                    "api): a "
                     "partial run for finding faults, which prints no result "
                     "line")
     args = ap.parse_args(argv)
@@ -963,7 +1184,9 @@ def main(argv=None):
         k200=lambda: counted("k200_", phase_k200(rows)),
         long=lambda: counted("long", phase_long(refs)),
         sweep=lambda: counted("sweep", (phase_sweep(rows), [])),
-        cli=lambda: phase_cli(refs))
+        cli=lambda: phase_cli(refs),
+        mfe=lambda: phase_mfe(rows, refs),
+        api=lambda: counted("api", (phase_api(refs), [])))
     only = args.only.split(",") if args.only else list(phases)
     for name in only:
         phases[name]()
@@ -974,6 +1197,7 @@ def main(argv=None):
     if args.full:
         phase_full(rows, refs)
         phase_full_long()
+        phase_full_mfe(rows)
     kern["shapes"] += steps
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "rafft_tpu"))

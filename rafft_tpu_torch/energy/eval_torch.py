@@ -192,6 +192,52 @@ def _ext_stem_v(dp, t, s5, s3, has5, has3):
 
 
 # ----------------------------------------------------------------------
+# index-taking loop energies (the MFE DP's view)
+# ----------------------------------------------------------------------
+# codes [..., N] and n [...] share leading dims L; every position tensor
+# has L's rank plus its own trailing dims, with leading dims equal to L
+# or 1 (expanded here), and the positions broadcast against each other.
+
+def _lead(codes, x):
+    lead = codes.shape[:-1]
+    return x.expand(*lead, *x.shape[len(lead):])
+
+
+def _n_as(n, x):
+    return n.reshape(*n.shape, *(1,) * (x.dim() - n.dim()))
+
+
+def _at(codes, n, i):
+    """codes[..., i] with 0 outside [0, n), for a position tensor i."""
+    i = _lead(codes, i)
+    return _sget(codes, i, _n_as(n, i))
+
+
+def _hairpin(dp, codes, n, i, j, key5, key6, key8):
+    """Hairpin closed by (i, j) (eval_jax._hairpin); key* = _kmer_keys."""
+    t = _ptype(dp, _at(codes, n, i), _at(codes, n, j))
+    k5, k6, k8 = (take(k, _lead(codes, i)) for k in (key5, key6, key8))
+    return _hairpin_v(dp, t, _at(codes, n, i + 1), _at(codes, n, j - 1),
+                      j - i - 1, k5, k6, k8)
+
+
+def _int_loop(dp, codes, n, i, j, q, r):
+    """Two-loop closed by (i, j) with inner pair (q, r) (eval_jax._int_loop)."""
+    t1 = _ptype(dp, _at(codes, n, i), _at(codes, n, j))
+    t2 = _ptype(dp, _at(codes, n, r), _at(codes, n, q))
+    return _int_loop_v(dp, t1, t2, _at(codes, n, i + 1), _at(codes, n, j - 1),
+                       _at(codes, n, q - 1), _at(codes, n, r + 1),
+                       q - i - 1, j - r - 1)
+
+
+def _ext_stem(dp, codes, n, i, j):
+    """Exterior stem (i, j) (eval_jax._ext_stem)."""
+    t = _ptype(dp, _at(codes, n, i), _at(codes, n, j))
+    return _ext_stem_v(dp, t, _at(codes, n, i - 1), _at(codes, n, j + 1),
+                       i > 0, j < _n_as(n, j) - 1)
+
+
+# ----------------------------------------------------------------------
 # whole pair tables
 # ----------------------------------------------------------------------
 

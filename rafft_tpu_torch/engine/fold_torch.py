@@ -32,6 +32,7 @@ What differs from the JAX engine:
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 
 import numpy as np
@@ -48,6 +49,7 @@ from rafft_tpu_torch.energy.eval_torch import (_ext_stem_v, _hairpin_v,
                                                device_params, eval_pt, take)
 from rafft_tpu_torch.engine.wavefront import small_tables, wavefront_tables
 
+_LOG = logging.getLogger(__name__)
 NEG = float(np.float32(-3.0e38))
 MASK32 = 0xFFFFFFFF
 
@@ -58,6 +60,10 @@ FLAG_SEEN = 4       # seen-set capacity S overflowed (dedup voided)
 FLAG_HASH = 8       # hash-composition check failed (JAX debug builds only)
 FLAG_CPLX = 16      # complex-candidate full-eval budget overflowed
 FLAG_STEPLIM = 32   # fold hit the step safety limit unfinished
+# flag bits -> cause names, as the sweeps' flag histograms count them
+FLAG_NAMES = {FLAG_VWINDOW: "v_window", FLAG_RSLOTS: "r_slots",
+              FLAG_SEEN: "seen_set", FLAG_HASH: "hash_check",
+              FLAG_CPLX: "cplx_budget", FLAG_STEPLIM: "step_limit"}
 
 M_NORM, M_FIRST, M_DONE = 0, 1, 2
 INFE = 1 << 30
@@ -841,6 +847,12 @@ class FoldEngine:
             enum_suspect=state["enum_suspect"] | torch.where(keep, bits, 0))
         return st
 
+    @staticmethod
+    def flags(st):
+        """The FLAG_* cause bitmask of every lane's fold in state `st`."""
+        return (st["enum_suspect"] | _bit(st["cplx_dropped"] > 0, FLAG_CPLX)
+                | _bit(~st["done"], FLAG_STEPLIM))
+
     # ---------------- continuous batching
     def _swap(self, st):
         """Lanes whose fold finished (or hit the step limit) bank their
@@ -858,9 +870,7 @@ class FoldEngine:
         st["out_n"] = torch.where(rec, st["n"], st["out_n"])
         st["out_seqid"] = torch.where(rec, st["seqid"], st["out_seqid"])
         st["out_done"] = torch.where(rec, st["done"], st["out_done"])
-        st["out_flag"] = torch.where(
-            rec, st["enum_suspect"] | _bit(st["cplx_dropped"] > 0, FLAG_CPLX)
-            | _bit(~st["done"], FLAG_STEPLIM), st["out_flag"])
+        st["out_flag"] = torch.where(rec, self.flags(st), st["out_flag"])
         st["out_valid"] = st["out_valid"] | rec
         st2 = self._refill(st, rec, st["next_codes"], st["next_n"])
         st2["seqid"] = torch.where(rec, st["next_seqid"], st["seqid"])
@@ -1019,17 +1029,60 @@ def fold_one_config(n, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
                         R=16 if N <= 512 else 32)
 
 
-def fold_one(sequence, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
-             min_nrj=0.0, traj=False, temp=37.0, gc_wei=3.0, au_wei=2.0,
-             gu_wei=1.0, *, device="cuda"):
-    """Single-sequence API on the batched engine (reference fold()
-    signature plus the device to run on)."""
+def _fold_one(sequence, nb_mode, max_stack, max_branch, min_hp, min_nrj,
+              traj, temp, gc_wei, au_wei, gu_wei, device):
+    """fold_one's results and the fold's FLAG_* bitmask."""
     cfg = fold_one_config(len(sequence), nb_mode, max_stack, max_branch,
                           min_hp, min_nrj, temp, gc_wei, au_wei, gu_wei)
     eng = FoldEngine(cfg, B=1, device=device)
     mk = lambda rows: [Structure([], [], e, db) for db, e in rows]
     if traj:
-        beams, steps, _ = eng.run([sequence], collect_traj=True)
-        return mk(beams[0]), [mk(s[0]) for s in steps]
-    beams, _ = eng.run([sequence])
-    return mk(beams[0])
+        beams, steps, state = eng.run([sequence], collect_traj=True)
+        out = (mk(beams[0]), [mk(s[0]) for s in steps])
+    else:
+        beams, state = eng.run([sequence])
+        out = mk(beams[0])
+    return out, int(eng.flags(state)[0])
+
+
+def fold_one(sequence, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
+             min_nrj=0.0, traj=False, temp=37.0, gc_wei=3.0, au_wei=2.0,
+             gu_wei=1.0, *, device="cuda"):
+    """Single-sequence API on the batched engine (reference fold()
+    signature plus the device to run on).  A flagged fold is returned as
+    the engine made it: `fold` refolds those on the CPU."""
+    return _fold_one(sequence, nb_mode, max_stack, max_branch, min_hp,
+                     min_nrj, traj, temp, gc_wei, au_wei, gu_wei, device)[0]
+
+
+def flag_names(flag: int) -> str:
+    return "+".join(c for b, c in FLAG_NAMES.items() if flag & b) or "none"
+
+
+# fold() calls whose engine fold was flagged and refolded by fold_cpu
+REFOLDS = 0
+
+
+def fold(sequence, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
+         min_nrj=0.0, traj=False, temp=37.0, gc_wei=3.0, au_wei=2.0,
+         gu_wei=1.0, *, device="cuda"):
+    """The package's `fold`: rafft_tpu.fold's signature and results, the
+    final beam (and the trajectory with traj=True), plus the device.
+
+    Folds on the batched engine (fold_one); where the engine flags the
+    fold as possibly inexact (a FLAG_* bit), returns the sequential CPU
+    parity engine's fold instead, as sweep() does with flagged folds,
+    and logs the causes at INFO.  So the result equals rafft_tpu.fold's
+    on every input."""
+    global REFOLDS
+    args = (nb_mode, max_stack, max_branch, min_hp, min_nrj, traj, temp,
+            gc_wei, au_wei, gu_wei)
+    out, flag = _fold_one(sequence, *args, device)
+    if not flag:
+        return out
+    from rafft_tpu_torch.engine import fold_cpu
+
+    _LOG.info("fold: the engine flagged a %d-nt fold (%s); refolding it "
+              "with fold_cpu", len(sequence), flag_names(flag))
+    REFOLDS += 1
+    return fold_cpu.fold(sequence, *args)

@@ -1,11 +1,13 @@
 """ctypes binding for the native Turner evaluator (host C++).
 
-Counterpart of rafft_tpu/native/__init__.py.  turner_eval.cpp is built
+Counterpart of rafft_tpu/native/__init__.py and of the native half of
+rafft_tpu/mfe/__init__.py.  turner_eval.cpp is built
 with g++ at first use into build/rafft_tpu_torch/ (never next to the
 source) and initialised with the calibrated tables of
 rafft_tpu_torch.energy.params, so the numpy and the native evaluator
 share one parameter source.  `native_oracle(temperature)` returns a fast
-eval(codes, pt) -> int callable; it raises RuntimeError where no C++
+eval(codes, pt) -> int callable, and `turner_mfe(codes, temperature)`
+runs the library's Zuker DP; both raise RuntimeError where no C++
 compiler is found (fold_cpu then takes the numpy evaluator and says so).
 """
 
@@ -32,6 +34,8 @@ def _lib():
         lib.turner_init.restype = None
         lib.turner_init.argtypes = ([_I32P] * 4 + [ctypes.c_int32]
                                     + [_I32P] * 14 + [ctypes.c_int32] * 6)
+        lib.turner_mfe.restype = ctypes.c_int32
+        lib.turner_mfe.argtypes = [_I8P, ctypes.c_int32, _I32P]
         lib._rafft_typed = True
     return lib
 
@@ -83,3 +87,15 @@ def native_oracle(temperature: float = 37.0):
                                pt.ctypes.data_as(_I32P), len(codes))
 
     return ev
+
+
+def turner_mfe(codes: np.ndarray, temperature: float = 37.0):
+    """The library's Zuker DP on int8 codes [n]: (MFE pair table int32
+    [n], energy in dekacal/mol)."""
+    lib = _lib()
+    _init_tables(lib, temperature)
+    codes = np.ascontiguousarray(codes, dtype=np.int8)
+    pt = np.empty(len(codes), dtype=np.int32)
+    e = lib.turner_mfe(codes.ctypes.data_as(_I8P), len(codes),
+                       pt.ctypes.data_as(_I32P))
+    return pt, int(e)

@@ -31,15 +31,12 @@ import time
 
 import numpy as np
 
-from rafft_tpu_torch.engine.fold_torch import EngineConfig, FoldEngine
+from rafft_tpu_torch.engine.fold_torch import (FLAG_NAMES, EngineConfig,
+                                               FoldEngine)
 from rafft_tpu_torch.scoring import best_of, score_structures
 
 # the buckets of rafft_tpu/parallel/sweep.py (no 64 bucket there either)
 DEFAULT_BUCKETS = (128, 256, 512, 1024, 2048, 4096)
-
-# engine exactness-flag bits -> cause names (fold_torch.FLAG_*)
-FLAG_NAMES = {1: "v_window", 2: "r_slots", 4: "seen_set", 8: "hash_check",
-              16: "cplx_budget", 32: "step_limit"}
 
 
 def _cpu_refold(task):

@@ -1,6 +1,6 @@
 """Measure the port's fold path on one CUDA card, layer by layer.
 
-    python -m rafft_tpu_torch.tools.measure [--phases loops,headline,syncs,profile,kernel,walk]
+    python -m rafft_tpu_torch.tools.measure [--phases loops,headline,syncs,profile,kernel,walk,mfe]
                                             [--passes 5] [--out DIR]
 
 Run it from the root of a checkout: it measures the rafft_tpu_torch
@@ -54,7 +54,22 @@ Phases (each prints lines tagged with its name):
              Then the N=128 headline with the fold step calling one
              version or the other, in the same order of passes.  Both
              versions share everything else, so the difference is the
-             loop analysis alone.
+             loop analysis alone;
+  mfe      - the batched MFE DP (mfe/mfe_torch.py) per MFE bucket (32 to
+             1024 on a full batch of the bucket's first journal rows at
+             bench_mfe's batch size, and 4096 on the longer 23S rRNA,
+             B=1): ms per batch (CUDA events around whole fills after a
+             warm-up, `--passes` of them; one at 4096), the peak's rise
+             over the inputs; from torch.profiler over the first 128
+             diagonals of a fill with and one without F: device ops per
+             diagonal and per step of the exterior F loop, and the busy
+             share (kernel ms over the unprofiled wall of the same cut
+             fill; a fill of tens of thousands of launches cannot be
+             enqueued ahead of a held device, whose launch queue fills
+             up, so the events cannot give its device time alone); the
+             host's copy and traceback seconds, and the native C++ DP's
+             seconds on the same rows, whose structures and energies the
+             card's must equal.
 """
 
 from __future__ import annotations
@@ -689,6 +704,117 @@ def phase_swap(rows_all, against, rounds):
             f"passes {[round(x, 4) for x in warm]}")
 
 
+MFE_BUCKETS = (32, 64, 128, 256, 512, 1024, 4096)
+
+
+def mfe_bucket_rows(rows_all, N, count):
+    """The first `count` journal rows of MFE bucket N (bench_mfe's
+    bucketing); at 4096 the longer of the corpus' two 23S rRNAs."""
+    from rafft_tpu_torch.tools.bench_mfe import mfe_bucket
+    if N == 4096:
+        with open(os.path.join(ROOT, "benchmarks", "artifacts",
+                               "longtail.ckpt.jsonl")) as fh:
+            long = [json.loads(line) for line in fh]
+        return sorted(long, key=lambda r: -len(r["seq"]))[:count]
+    return [r for r in rows_all if mfe_bucket(len(r["seq"])) == N][:count]
+
+
+def mfe_profile(eng, seqs, diagonals=None):
+    """torch.profiler (device activity) over one fill of `seqs`, after an
+    unprofiled one, without and with the exterior F loop.  With
+    `diagonals` the fill is cut to its first that many diagonals (and as
+    many F steps): a diagonal issues the same ops at every d >= 8, N and
+    B, and the trace of a whole long fill costs minutes.  Returns the
+    diagonals run, device ops per diagonal (the set-up before the loop
+    counted in), device ops per F step, the kernel ms of the fill, and
+    the host-clock ms of the unprofiled fill (synchronised), over which
+    the kernel ms are the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rafft_tpu_torch.mfe import mfe_torch as MT
+    codes, n, n_max = eng._encode(seqs)
+    if diagonals:
+        n_max = min(n_max, diagonals + 4)
+    steps = max(n_max - 4, 1)
+    stats = {}
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    for with_f in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        MT._mfe_fill(eng.dp, codes, n, with_f=with_f, n_max=n_max)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            MT._mfe_fill(eng.dp, codes, n, with_f=with_f, n_max=n_max)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            prof.export_chrome_trace(os.path.join(tmp, "t.json"))
+            stats[with_f] = _trace_stats(os.path.join(tmp, "t.json"))[:2]
+    return dict(steps=steps, ops_per_diagonal=stats[False][1] / steps,
+                f_ops_per_step=(stats[True][1] - stats[False][1]) / steps,
+                kernel_ms=stats[True][0], wall_ms=wall * 1e3)
+
+
+def phase_mfe(rows_all, passes):
+    from rafft_tpu_torch.mfe import mfe_fold
+    from rafft_tpu_torch.mfe import mfe_torch as MT
+    from rafft_tpu_torch.tools.bench_mfe import mfe_bucket_batch
+    for N in MFE_BUCKETS:
+        rows = mfe_bucket_rows(rows_all, N, mfe_bucket_batch(16, N))
+        seqs = [r["seq"] for r in rows]
+        eng = MT.MfeEngine(N, B=len(seqs), device="cuda")
+        codes, n, n_max = eng._encode(seqs)
+
+        def fill():
+            return MT._mfe_fill(eng.dp, codes, n, n_max=n_max)
+
+        if N <= 1024:
+            fill()                  # warm-up (4096 comes after 1024's)
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ms, walls = [], []
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(passes if N <= 1024 else 1):
+            w0 = time.perf_counter()
+            t0.record()
+            out = fill()
+            t1.record()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - w0)
+            ms.append(t0.elapsed_time(t1))
+            del out
+        rise = torch.cuda.max_memory_allocated() - base
+        wall = _median(walls)
+        prof = mfe_profile(eng, seqs, diagonals=128)
+        timing = {}
+        got = eng.fold(seqs, timing=timing)
+        t0 = time.perf_counter()
+        want = [mfe_fold(s) for s in seqs]
+        native = time.perf_counter() - t0
+        if got != want:
+            bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+            raise AssertionError(f"mfe N={N}: rows {bad} differ from the "
+                                 f"native DP")
+        log(f"[mfe] N={N} B={len(seqs)} ({min(map(len, seqs))}-"
+            f"{max(map(len, seqs))} nt, {n_max - 4} diagonals): fill median "
+            f"{_median(ms):.3f} ms per batch {[round(x, 3) for x in ms]} "
+            f"(events; host clock {wall * 1e3:.1f} ms); peak rise "
+            f"{rise / MiB:.1f} MiB; profile of the first {prof['steps']} "
+            f"diagonals: {prof['ops_per_diagonal']:.1f} device ops per "
+            f"diagonal and {prof['f_ops_per_step']:.1f} per F step, kernel "
+            f"{prof['kernel_ms']:.2f} ms, busy share "
+            f"{100 * prof['kernel_ms'] / prof['wall_ms']:.1f}% of its "
+            f"unprofiled wall ({prof['wall_ms']:.1f} ms); fold "
+            f"{timing['fill']:.3f} s fill + "
+            f"{timing['host']:.3f} s copies and tracebacks; native DP "
+            f"{native:.3f} s for the same rows; {len(seqs)}/{len(seqs)} "
+            f"equal it")
+        del eng, codes, n
+        torch.cuda.empty_cache()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="loops,headline,syncs,profile")
@@ -719,6 +845,8 @@ def main(argv=None):
             phase_walk()
         elif ph == "swap":
             phase_swap(rows, args.against, args.passes)
+        elif ph == "mfe":
+            phase_mfe(rows, args.passes)
         else:
             raise SystemExit(f"measure: unknown phase {ph}")
         log(f"[{ph}] took {time.perf_counter() - t0:.1f} s")

@@ -44,6 +44,23 @@ stats = {}
 out = sweep.sweep(recs, nb_mode=8, max_stack=2, max_branch=16, buckets=(32,),
                   stats=stats, device="cpu")
 assert out[0]["struct"] == res[0].str_struct and stats["n_fallback"] == 0
+# the MFE DP, the package root's fold / kinetics / mfe_fold and the host
+# library modules
+from rafft_tpu_torch import analysis, fold, kinetics, mfe_fold, mfe_batch
+from rafft_tpu_torch.cli import kin_cli
+from rafft_tpu_torch.energy import features, EnergyParams, eval_structure_int
+from rafft_tpu_torch.kin import plot
+from rafft_tpu_torch.tools import bench_mfe
+from rafft_tpu_torch.viz import layout, plot_path, surface
+seq = "GGGAAACCCAAAGGGAAACCC"
+mfe = mfe_batch([seq, "ACGU"], device="cpu")
+assert mfe == [mfe_fold(seq), ("....", 0.0)], mfe
+assert mfe[0][1] == eval_structure_int(seq, mfe[0][0]) / 100
+assert bench_mfe.mfe_records([(seq, "", "a")], device="cpu") == mfe[:1]
+final, traj = fold(seq, 8, 2, 16, traj=True, device="cpu")
+assert [s.str_struct for s in final] == [s.str_struct for s in res]
+_, _, structs, equi = kinetics(traj + [final], 10, 20, method="expm")
+assert abs(sum(p for _, _, p, _ in equi) - 1) < 1e-9 and structs
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "rafft_tpu"))
 assert not loaded, loaded

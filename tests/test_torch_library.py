@@ -1,0 +1,189 @@
+"""The port's host library modules and package root against the originals.
+
+analysis.py, energy/features.py, viz/ and the root `fold` of
+rafft_tpu_torch are held against rafft_tpu's on seeded inputs, as
+tests/test_torch_oracle.py holds the other copies.  Everything compared
+is integer, text or the same float arithmetic, so every comparison is
+exact.  The drawing modules must import where matplotlib and
+scikit-learn are absent (the card machine has neither).
+"""
+
+import dataclasses
+import logging
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import rafft_tpu
+import rafft_tpu_torch
+from rafft_tpu import analysis as JA
+from rafft_tpu.energy import features as JF
+from rafft_tpu.energy import params as JP
+from rafft_tpu.viz import layout as JL
+from rafft_tpu.viz import surface as JSu
+from rafft_tpu_torch import analysis as PA
+from rafft_tpu_torch.energy import features as PF
+from rafft_tpu_torch.energy import params as PP
+from rafft_tpu_torch.engine import fold_torch as FT
+from rafft_tpu_torch.viz import layout as PL
+from rafft_tpu_torch.viz import surface as PSu
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CAN = {("A", "U"), ("U", "A"), ("G", "C"), ("C", "G"), ("G", "U"), ("U", "G")}
+
+
+def _random_pair(rng, nmin, nmax):
+    """A seeded sequence and a nested structure of canonical pairs with
+    hairpins >= 3."""
+    seq = "".join(rng.choice(list("ACGU"), int(rng.integers(nmin, nmax))))
+    pairs, stack = [], []
+    for i, ch in enumerate(seq):
+        u = rng.random()
+        if stack and i - stack[-1] > 3 and (seq[stack[-1]], ch) in CAN \
+                and u < 0.5:
+            pairs.append((stack.pop(), i))
+        elif u > 0.6:
+            stack.append(i)
+    db = ["."] * len(seq)
+    for i, j in pairs:
+        db[i], db[j] = "(", ")"
+    return seq, "".join(db)
+
+
+CASES = [_random_pair(np.random.default_rng(k), 20, 160) for k in range(24)]
+CASES += [("GGGAAACCC", "(((...)))"), ("AAAA", "....")]
+
+
+def test_analysis_equal(tmp_path):
+    for seq, db in CASES:
+        for fn in ("shapiro", "shapiro_weighted", "loop_content",
+                   "loop_content_sized"):
+            assert getattr(PA, fn)(db) == getattr(JA, fn)(db), (fn, db)
+        for mod, tag in ((JA, "j"), (PA, "p")):
+            mod.write_ct(db, seq, str(tmp_path / f"{tag}.ct"), "x")
+        assert (tmp_path / "j.ct").read_text() == (tmp_path / "p.ct").read_text()
+        assert PA.parse_ct(str(tmp_path / "p.ct")) == JA.parse_ct(str(tmp_path / "p.ct"))
+        assert PA.ct_to_db(str(tmp_path / "p.ct")) == JA.ct_to_db(str(tmp_path / "p.ct"))
+    dbs = [db for _, db in CASES]
+    assert PA.loop_entropy(dbs) == JA.loop_entropy(dbs)
+    csv = tmp_path / "rows.csv"
+    csv.write_text("seq,struct,name\n" + "".join(
+        f"{s},{d},r{k}\n" for k, (s, d) in enumerate(CASES)))
+    assert PA.read_csv(str(csv)) == JA.read_csv(str(csv))
+    assert PA.read_true_struct(str(csv)) == JA.read_true_struct(str(csv))
+
+
+@pytest.mark.parametrize("temp", [37.0, 25.0])
+def test_features_equal(temp):
+    jp, pp = JP.get_params(temp), PP.get_params(temp)
+    for seq, db in CASES:
+        for specials in (False, True):
+            jf, jo = JF.featurize(seq, db, jp, specials_as_params=specials)
+            pf, po = PF.featurize(seq, db, pp, specials_as_params=specials)
+            assert (pf, po) == (jf, jo), (seq, db)
+            assert {k: PF.value_of(k, pp) for k in pf} == \
+                {k: JF.value_of(k, jp) for k in jf}
+            assert PF.energy_from_features(pf, po, pp) == \
+                JF.energy_from_features(jf, jo, jp)
+
+
+def test_viz_equal():
+    for seq, db in CASES:
+        assert np.array_equal(PL.layout(db), JL.layout(db))
+        assert PL.structure_svg(seq, db) == JL.structure_svg(seq, db)
+    dbs = [db for _, db in CASES if len(db) == len(CASES[0][1])] + \
+        [CASES[0][1].replace("(", ".").replace(")", ".")]
+    for a in dbs:
+        for b in dbs:
+            assert PSu.bp_distance(a, b) == JSu.bp_distance(a, b)
+    assert np.array_equal(PSu.get_distance_matrix(dbs),
+                          JSu.get_distance_matrix(dbs))
+
+
+def test_energy_exports_equal():
+    import rafft_tpu.energy as JE
+    import rafft_tpu_torch.energy as PE
+    assert PE.__all__ == JE.__all__
+    for seq, db in CASES[:8]:
+        assert PE.eval_structure_int(seq, db) == JE.eval_structure_int(seq, db)
+        assert PE.eval_structure(seq, db) == JE.eval_structure(seq, db)
+    assert dataclasses.asdict(PE.get_params(37.0)).keys() == \
+        dataclasses.asdict(JE.get_params(37.0)).keys()
+
+
+def test_root_api():
+    for name in ("fold", "kinetics", "mfe_fold", "__version__"):
+        assert name in rafft_tpu_torch.__all__ and name in rafft_tpu.__all__
+    assert rafft_tpu_torch.__version__ == rafft_tpu.__version__
+    for name in ("FoldEngine", "fold_one", "MfeEngine", "mfe_batch"):
+        assert hasattr(rafft_tpu_torch, name)
+    seq = CASES[3][0]
+    assert rafft_tpu_torch.mfe_fold(seq) == rafft_tpu.mfe_fold(seq)
+
+
+def _rows(structs):
+    return [(s.str_struct, s.energy) for s in structs]
+
+
+FOLD_ARGS = [("GGGUUUGCGGUGUAAGUGCAGCCCGUCUUACACCGUGCGGCACAGG", 100, 5, 1000),
+             (CASES[1][0], 20, 3, 100), (CASES[2][0], 50, 8, 200)]
+
+
+@pytest.mark.parametrize("k", range(len(FOLD_ARGS)))
+def test_root_fold_equals_rafft_tpu(k):
+    seq, nb, ms, mb = FOLD_ARGS[k]
+    for traj in (False, True):
+        got = rafft_tpu_torch.fold(seq, nb, ms, mb, traj=traj, device="cpu")
+        want = rafft_tpu.fold(seq, nb, ms, mb, traj=traj)
+        if traj:
+            assert [_rows(s) for s in got[1]] == [_rows(s) for s in want[1]]
+            got, want = got[0], want[0]
+        assert _rows(got) == _rows(want)
+
+
+def test_root_fold_refolds_a_flagged_fold(monkeypatch, caplog):
+    """A fold the engine flags comes from fold_cpu, logged with its cause."""
+    seq, nb, ms, mb = FOLD_ARGS[0]
+    cut = FT.fold_one_config
+
+    def tiny_seen_set(*a):
+        return dataclasses.replace(cut(*a), S=24)
+
+    monkeypatch.setattr(FT, "fold_one_config", tiny_seen_set)
+    assert FT._fold_one(seq, nb, ms, mb, 3, 0.0, False, 37.0, 3.0, 2.0, 1.0,
+                        "cpu")[1] & FT.FLAG_SEEN
+    before = FT.REFOLDS
+    with caplog.at_level(logging.INFO, logger=FT.__name__):
+        got, traj = rafft_tpu_torch.fold(seq, nb, ms, mb, traj=True,
+                                         device="cpu")
+    assert FT.REFOLDS == before + 1
+    assert "seen_set" in caplog.text
+    want, want_traj = rafft_tpu.fold(seq, nb, ms, mb, traj=True)
+    assert _rows(got) == _rows(want)
+    assert [_rows(s) for s in traj] == [_rows(s) for s in want_traj]
+
+
+def test_drawing_modules_import_without_matplotlib_or_sklearn():
+    script = r"""
+import sys
+for m in ("matplotlib", "matplotlib.pyplot", "sklearn", "sklearn.manifold"):
+    sys.modules[m] = None
+from rafft_tpu_torch.kin import plot
+from rafft_tpu_torch.viz import layout, plot_path, surface
+from rafft_tpu_torch.cli import kin_cli
+assert surface.bp_distance("((..))", "(....)") == 1
+try:
+    plot.plot_traj([[1.0]], [None], [1.0], 10, 4, 3, 0.1, "x.png")
+except ImportError:
+    print("OK")
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "OK"

@@ -18,12 +18,21 @@ are committed in rafft_tpu_torch/testdata/chip_smoke_refs.json:
             -ms 5 --nono (the tree-keeping engine and its printed tree);
   long      two seeded sequences of 1,100 to 2,000 nt
             (tools/measure.py:seeded_sequence) with fold_cpu's beams at
-            the cut configuration -n 20 -ms 3 --max_branch 100.
+            the cut configuration -n 20 -ms 3 --max_branch 100;
+  mfe       the JAX package's batched MFE DP (mfe_jax.mfe_batch, one
+            batch at N=128) on the README sequence and the first 8
+            journal rows of 65 to 120 nt: structures and energies;
+  kin       the JAX kinetics CLI's stdout on the `cli` output (the
+            README fold's trajectory), with --method expm at the
+            default -mt 30 and with the eig method at -mt 10 (where its
+            eigendecomposition is well conditioned, so that another
+            LAPACK prints the same).
 
 Each test recomputes one part from the JAX package and asserts that the
 committed file still holds it (the max_stack 20 part of `weights` is
 checked in tests/test_torch_smoke_refs_w20.py: each costs one compile of
-the JAX engine).  To write the file anew:
+the JAX engine; `mfe` in tests/test_torch_smoke_refs_mfe.py: the JAX DP
+takes about 8 s a sequence on the CPU at N=128).  To write the file anew:
 
     JAX_PLATFORMS=cpu python tests/test_torch_smoke_refs.py --write
 """
@@ -34,6 +43,7 @@ import io
 import json
 import os
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -42,6 +52,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from rafft_tpu.cli import fold_cli as JCLI  # noqa: E402
+from rafft_tpu.cli import kin_cli as JKIN  # noqa: E402
 from rafft_tpu.engine.fold_cpu import fold as cpu_fold  # noqa: E402
 from rafft_tpu_torch.tools.measure import seeded_sequence  # noqa: E402
 
@@ -60,6 +71,9 @@ NONO_ARGS = ["-s", README_SEQ, "-ms", "5", "--nono"]
 # configuration
 LONG_SEQS = ((2048, 1100, 2000), (2049, 1100, 2000))
 LONG_CUT = dict(nb_mode=20, max_stack=3, max_branch=100)
+# the MFE entry: journal rows of the 128 MFE bucket, at most 120 nt
+MFE_N, MFE_ROWS, MFE_MAXLEN = 128, 8, 120
+KIN_ARGS = (["--method", "expm"], ["-mt", "10"])
 
 
 def _rows(structs):
@@ -104,6 +118,40 @@ def ref_oracle(row):
     return dict(row=row, name=r["name"], seq=r["seq"], beam=beam)
 
 
+def mfe_rows():
+    """(journal index or None, name, seq): the README sequence, then the
+    first MFE_ROWS journal rows of 65 to MFE_MAXLEN nt."""
+    out = [(None, "readme", README_SEQ)]
+    with gzip.open(JOURNAL, "rt") as fh:
+        for i, line in enumerate(fh):
+            r = json.loads(line)
+            if 64 < len(r["seq"]) <= MFE_MAXLEN:
+                out.append((i, r["name"], r["seq"]))
+                if len(out) > MFE_ROWS:
+                    break
+    return out
+
+
+def ref_mfe(rows):
+    from rafft_tpu.mfe.mfe_jax import mfe_batch
+    res = mfe_batch([seq for _, _, seq in rows], N=MFE_N)
+    return [dict(row=i, name=name, seq=seq, struct=db, nrj=e)
+            for (i, name, seq), (db, e) in zip(rows, res)]
+
+
+def ref_kin(rafft_out, tmp_dir):
+    path = os.path.join(tmp_dir, "rafft.out")
+    with open(path, "w") as fh:
+        fh.write(rafft_out)
+    out = []
+    for args in KIN_ARGS:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            JKIN.main([path, *args])
+        out.append(dict(args=args, stdout=buf.getvalue()))
+    return out
+
+
 def build():
     return dict(readme_seq=README_SEQ,
                 fold_one={str(ms): ref_fold_one(ms) for ms in (5, 20)},
@@ -112,7 +160,9 @@ def build():
                 weights=dict(args=WEIGHTS, fold_one={
                     str(ms): ref_weights(ms) for ms in (5, 20)}),
                 cli_nono=ref_cli(NONO_ARGS),
-                long=[ref_long(*a) for a in LONG_SEQS])
+                long=[ref_long(*a) for a in LONG_SEQS],
+                mfe=dict(N=MFE_N, rows=ref_mfe(mfe_rows())),
+                kin=ref_kin(ref_cli()["stdout"], tempfile.mkdtemp()))
 
 
 @pytest.fixture(scope="module")
@@ -158,6 +208,12 @@ def test_long_refs(committed, k):
     want = ref_long(*LONG_SEQS[k])
     assert committed["long"][k] == want
     assert 1100 <= len(want["seq"]) <= 2000 and want["beam"][0][1] < 0
+
+
+def test_kin_refs(committed, tmp_path):
+    assert committed["kin"] == ref_kin(committed["cli"]["stdout"], str(tmp_path))
+    for k in committed["kin"]:
+        assert len(k["stdout"].splitlines()) > 10
 
 
 if __name__ == "__main__":
