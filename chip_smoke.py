@@ -113,6 +113,23 @@ result line):
                 print the committed JAX kinetics CLI's stdout (expm at
                 -mt 30, eig at -mt 10); mfe_fold gives the committed MFE
                 rows;
+ 9d. multi    - the scale-out layer on the one card (runs on several
+                cards are not checked here: the machine has one): the dry
+                run (parallel/dryrun.py) split over ["cuda:0", "cuda:0"] is
+                bit-equal to one engine and to the dry run on the CPU,
+                every kernel call it makes (N=32) gives the plain
+                version's seven tables, and data_devices(count + 1)
+                raises; sweep(devices=["cuda:0", "cuda:0"]) over the first
+                32 journal rows of <= 128 nt and 8 of the 256 bucket writes
+                the journal's beams-journal rows and the one-device
+                sweep's results, each worker launching the kernel; `python
+                -m rafft_tpu_torch.parallel.launch` of two gloo processes
+                sharing cuda:0 merges to the one-process sweep CLI's rows
+                (part 0's, then part 1's) and means, each process
+                launching the kernel; then seq/s on the headline rows, one
+                process at B=16 against two sharing cuda:0 at B=8 each,
+                medians of 3 alternated passes after a warm-up (printed,
+                not gated);
  10. full     - with --full only: sweep() over all 2,294 journal rows,
                 the flagged ones refolded on the CPU; every beams-journal
                 row equals the committed journal or, on the rows where
@@ -149,10 +166,13 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import csv
 import gzip
 import io
 import json
+import multiprocessing
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -174,6 +194,8 @@ from rafft_tpu_torch.engine.fold_torch import (EngineConfig, FoldEngine,
                                                fold_one, fold_one_config,
                                                weight_matrix)
 from rafft_tpu_torch.mfe import MfeEngine, mfe_fold
+from rafft_tpu_torch.parallel import dryrun, mesh
+from rafft_tpu_torch.parallel import sweep as TS
 from rafft_tpu_torch.parallel.sweep import bucket_batch, bucket_config, sweep
 from rafft_tpu_torch.native import native_oracle
 from rafft_tpu_torch.struct import pair_table, parse_rafft_output
@@ -1027,6 +1049,172 @@ def phase_api(refs):
 
 
 @phase
+def phase_multi(rows_all, smi):
+    """The scale-out layer on the one card: two workers and two processes
+    share cuda:0.  Returns the wavefront launches of the dry run, the
+    split sweep's workers and the launched processes."""
+    pair = ["cuda:0", "cuda:0"]
+    # (a) the dry run over two devices: every kernel call it makes (at
+    # N=32, its own shapes) held to the plain version, its gathered state
+    # to the dry run on the CPU; and no card is ever invented
+    real, calls = FT.wavefront_tables, []
+
+    def spy(*args):
+        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args))
+        return real(*args)
+
+    FT.wavefront_tables = spy
+    WT.LAUNCHES = 0
+    try:
+        got = dryrun.dryrun_multichip(2, devices=pair)
+    finally:
+        FT.wavefront_tables = real
+    launches = dict(dryrun=WT.LAUNCHES)
+    for i, args in enumerate(calls):
+        WT.check_layout(*args)
+        _tables_equal(args, f"dry run call {i}")
+    want = dryrun.dryrun_multichip(2, devices=["cpu", "cpu"])
+    for field in dryrun.FIELDS:
+        if not torch.equal(got[field].cpu(), want[field]):
+            raise AssertionError(f"the dry run on {pair} differs from the "
+                                 f"dry run on the CPU in {field}")
+    log(f"[multi] dry run: {len(calls)} kernel calls "
+        f"{sorted({tuple(a[2].shape) for a in calls})} keep the layout "
+        f"contract and give the plain version's 7 tables; pt/energy/active/"
+        f"done equal the dry run on the CPU")
+    count = torch.cuda.device_count()
+    try:
+        mesh.data_devices(count + 1)
+    except RuntimeError as e:
+        log(f"[multi] data_devices({count + 1}) raises: {e}")
+    else:
+        raise AssertionError(f"data_devices({count + 1}) did not raise")
+    # (b) the split sweep against the journal and the one-device sweep
+    rows = ([r for r in rows_all if len(r["seq"]) <= 128][:32]
+            + [r for r in rows_all if 128 < len(r["seq"]) <= 256][:8])
+    # the last beam entry stands in for the true structure: scores that
+    # are not all 100
+    records = [(r["seq"], r["beam"][-1][0], r["name"]) for r in rows]
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        res, stats = {}, {}
+        for tag, kw in (("two", dict(devices=pair)), ("one", dict(device="cuda"))):
+            path = os.path.join(tmp, f"{tag}.beams.jsonl")
+            stats[tag] = {}
+            t0 = time.perf_counter()
+            res[tag] = sweep(records, save_beams=path, stats=stats[tag], **kw)
+            secs = time.perf_counter() - t0
+            n = _journal_check(rows, path)
+            log(f"[multi] sweep({tag} device{'s' if tag == 'two' else ''}): "
+                f"{n}/{len(rows)} beams-journal rows equal the journal "
+                f"({secs:.2f} s); per device {stats[tag]['devices']}")
+        if res["two"] != res["one"]:
+            raise AssertionError("the two-worker sweep's results differ from "
+                                 "the one-device sweep's")
+        workers = stats["two"]["devices"]
+        if not all(w["launches"] > 0 for w in workers):
+            raise AssertionError(f"a worker never launched the wavefront "
+                                 f"kernel: {workers}")
+        launches["sweep"] = sum(w["launches"] for w in workers)
+        # (c) two gloo processes sharing cuda:0 against the one-process CLI
+        src = os.path.join(tmp, "bench.csv")
+        with open(src, "w", newline="") as fh:
+            csv.writer(fh).writerows(records)
+        one_csv, two_csv = (os.path.join(tmp, f"{t}.csv") for t in ("one", "two"))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            TS.main(["--csv", src, "--out", one_csv, "--device", "cuda"])
+        one_means = buf.getvalue().strip().splitlines()[-1].split("mean PPV ")[1]
+        t0 = time.perf_counter()
+        # a session of its own: on a timeout the launcher and both of its
+        # processes are stopped together
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "rafft_tpu_torch.parallel.launch",
+             "--num_processes", "2", "--device", "cuda", "--",
+             "--csv", src, "--out", two_csv], cwd=ROOT, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            start_new_session=True, env=dict(os.environ, PYTHONPATH=ROOT))
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise AssertionError("launch did not finish in 300 s")
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"launch failed ({proc.returncode}):\n"
+                                 f"{err[-3000:]}")
+        with open(one_csv) as fh:
+            head, *body = fh.readlines()
+        with open(two_csv) as fh:
+            merged = fh.readlines()
+        if merged != [head, *body[0::2], *body[1::2]]:
+            raise AssertionError("the merged CSV of two processes differs from "
+                                 "the one-process CLI's rows")
+        summary = [ln for ln in out.splitlines() if "merged" in ln]
+        if summary != [f"{len(body)} sequences merged; global mean PPV "
+                       f"{one_means}"]:
+            raise AssertionError(f"global means {summary} differ from the one "
+                                 f"process's: mean PPV {one_means}")
+        parts = []
+        for p in range(2):
+            with open(f"{two_csv}.part{p}.manifest.json") as fh:
+                parts.append(json.load(fh)["devices"])
+        if not all(d["launches"] > 0 for part in parts for d in part):
+            raise AssertionError(f"a process never launched the wavefront "
+                                 f"kernel: {parts}")
+        launches["launch"] = sum(d["launches"] for part in parts for d in part)
+        log(f"[multi] launch of 2 gloo processes on cuda:0: {len(body)} merged "
+            f"rows equal the one-process CLI's in part order, {summary[0]!r} "
+            f"({secs:.2f} s); per process {parts}")
+    # (d) seq/s on the headline rows: one worker process at B=16 against
+    # the sweep's split over two sharing cuda:0 at B=8 each (the same
+    # lanes)
+    head = [r for r in rows_all if len(r["seq"]) <= 120][:64]
+    seqs = [r["seq"] for r in head]
+    ctx = multiprocessing.get_context("spawn")
+    with contextlib.ExitStack() as stack:
+        pools = [stack.enter_context(concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=ctx)) for _ in pair]
+        threads = torch.get_num_threads()      # what the sweep gives a worker
+        task = lambda B, share: (HEADLINE, B, "cuda:0", share, threads)
+
+        def one():
+            out, _ = pools[0].submit(TS._fold_share, task(16, seqs)).result()
+            return {i: (rows, flag) for i, rows, flag in out}
+
+        def two():                             # the sweep's own split
+            per_device = [dict(device=d, rows=0, launches=0) for d in pair]
+            return {i: (rows, flag) for i, rows, flag in TS._bucket_stream(
+                HEADLINE, 16, seqs, pair, pools, per_device)}
+
+        for pool in pools:                        # warm-up: contexts, kernel
+            pool.submit(TS._fold_share, task(8, seqs[:16])).result()
+        secs, folds = {"one": [], "two": []}, {}
+        for tag in ("one", "two", "two", "one", "one", "two"):
+            t0 = time.perf_counter()
+            folds[tag] = (one if tag == "one" else two)()
+            secs[tag].append(time.perf_counter() - t0)
+    want = {i: ([(db, float(e)) for db, e in r["beam"]], 0)
+            for i, r in enumerate(head)}
+    for tag, got in folds.items():
+        if got != want:
+            raise AssertionError(f"the timed {tag}-process folds differ from "
+                                 f"the journal")
+    med = {t: len(seqs) / float(np.median(v)) for t, v in secs.items()}
+    log(f"[multi] headline rows ({len(seqs)}, <= 120 nt) on {smi}: one process "
+        f"B=16 {med['one']:.3f} seq/s, two processes sharing cuda:0 B=8 each "
+        f"{med['two']:.3f} seq/s (medians of {len(secs['one'])} passes each, "
+        f"alternated; seconds one {[round(x, 3) for x in secs['one']]}, two "
+        f"{[round(x, 3) for x in secs['two']]}); two / one "
+        f"{med['two'] / med['one']:.3f}")
+    log(f"[multi] wavefront launches: {launches}")
+    return sum(launches.values())
+
+
+@phase
 def phase_full(rows_all, refs):
     """sweep() over the whole journal, flagged folds refolded on the CPU."""
     records = [(r["seq"], "." * len(r["seq"]), r["name"]) for r in rows_all]
@@ -1156,7 +1344,7 @@ def main(argv=None):
     ap.add_argument("--only", help="comma-separated phases to run after "
                     "device and build (kernel, fold_one, oracle, weights, "
                     "headline, loops, buckets, k200, long, sweep, cli, mfe, "
-                    "api): a "
+                    "api, multi): a "
                     "partial run for finding faults, which prints no result "
                     "line")
     args = ap.parse_args(argv)
@@ -1186,7 +1374,8 @@ def main(argv=None):
         sweep=lambda: counted("sweep", (phase_sweep(rows), [])),
         cli=lambda: phase_cli(refs),
         mfe=lambda: phase_mfe(rows, refs),
-        api=lambda: counted("api", (phase_api(refs), [])))
+        api=lambda: counted("api", (phase_api(refs), [])),
+        multi=lambda: counted("multi", (phase_multi(rows, smi), [])))
     only = args.only.split(",") if args.only else list(phases)
     for name in only:
         phases[name]()

@@ -9,9 +9,9 @@ API (mirroring the reference's two-function surface) and more:
 
 `fold` runs the batched fold engine `FoldEngine` (any pair weights,
 beams up to K=255, the 128 to 4096 buckets; `fold_one` is its
-one-sequence call) and refolds a fold the engine flags on the
-sequential CPU parity engine (engine/fold_cpu.py), so it gives what
-rafft_tpu.fold gives.  The engine's wavefront window scan is a
+one-sequence call); a fold the engine flags, and an input it refuses
+(fold_torch.engine_refusal), go to the sequential CPU parity engine
+(engine/fold_cpu.py), so it gives what rafft_tpu.fold gives.  The engine's wavefront window scan is a
 hand-written CUDA kernel for Hopper (csrc/wavefront.cu, built with nvcc
 at first use).  The batched MFE DP `MfeEngine` / `mfe_batch`
 (mfe/mfe_torch.py) runs on the card; `mfe_fold` is the native C++ Zuker
@@ -19,10 +19,11 @@ DP on the host (native/turner_eval.cpp, built with g++ at first use), as
 in the JAX package.  Kinetics (kin/), the kinetics CLI (cli/kin_cli.py),
 the analysis, feature and drawing helpers (analysis.py,
 energy/features.py, viz/) are host numpy/scipy, as there.  The corpus
-sweep (parallel/sweep.py) and the fold CLI (cli/fold_cli.py) drive the
-engine.  Nothing here imports rafft_tpu or JAX.  Entry points that
-compute on tensors run on `device="cuda"` unless the caller names
-another; CPU tensors run the kernel's plain version.
+sweep (parallel/sweep.py, on one card, k cards or k processes) and the
+fold CLI (cli/fold_cli.py) drive the engine.  Nothing here imports
+rafft_tpu or JAX.  Entry points that compute on tensors run on
+`device="cuda"` unless the caller names another; CPU tensors run the
+kernel's plain version.
 """
 
 from rafft_tpu_torch.engine.fold_torch import (EngineConfig, FoldEngine,

@@ -4,9 +4,12 @@
 
 The flags and the output are those of rafft_tpu/cli/fold_cli.py (the
 reference CLI's surface, parsed-but-unused flags included), plus the
-device to fold on.  --engine torch (the default) folds with the batched
-engine on --device; --engine cpu folds with the sequential CPU parity
-engine and --nono with the tree-keeping engine, neither of which
+device to fold on.  --engine torch (the default) folds through the
+package's `fold` on --device: the batched engine, with what the engine
+flags or refuses answered by the sequential CPU parity engine, so the
+default prints what the reference CLI's default (its CPU parity engine)
+prints on every input.  --engine cpu folds with the sequential CPU
+parity engine and --nono with the tree-keeping engine, neither of which
 touches a device.
 """
 
@@ -15,8 +18,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from rafft_tpu_torch.engine import fold_cpu, fold_nono
-from rafft_tpu_torch.engine.fold_torch import fold_one
+from rafft_tpu_torch.engine import fold_cpu, fold_nono, fold_torch
 
 
 def parse_arguments(argv=None):
@@ -52,8 +54,9 @@ def parse_arguments(argv=None):
     parser.add_argument('--nono', action="store_true",
                         help="Use the tree-keeping (nono) engine instead.")
     parser.add_argument('--engine', choices=("cpu", "torch"), default="torch",
-                        help="fold engine: torch (batched engine on --device) "
-                             "or cpu (sequential parity oracle)")
+                        help="fold engine: torch (batched engine on --device, "
+                             "what it flags or refuses folded by the parity "
+                             "oracle) or cpu (sequential parity oracle)")
     return parser.parse_args(argv)
 
 
@@ -80,12 +83,10 @@ def main(argv=None):
         if args.nono:
             results, root = results
     else:
-        results = fold_one(
-            sequence, nb_mode=args.n_mode, max_stack=args.max_stack,
-            max_branch=args.max_branch, min_hp=args.min_hp,
-            min_nrj=args.min_nrj, traj=args.traj, temp=args.temp,
-            gc_wei=args.gc_wei, au_wei=args.au_wei, gu_wei=args.gu_wei,
-            device=args.device)
+        results = fold_torch.fold(
+            sequence, args.n_mode, args.max_stack, args.max_branch,
+            args.min_hp, args.min_nrj, args.traj, args.temp,
+            args.gc_wei, args.au_wei, args.gu_wei, device=args.device)
 
     if args.traj:
         final_struct, trajectory = results

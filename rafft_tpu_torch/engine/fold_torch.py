@@ -406,26 +406,33 @@ def _combo_pt(cfg, pt, rloc, rslot, rpos, krow, chosen_i, chosen_j,
 # the engine
 # ======================================================================
 
+def engine_refusal(cfg: EngineConfig) -> str | None:
+    """Why FoldEngine refuses `cfg`, or None where it takes it."""
+    if cfg.V < cfg.K:
+        return (f"V={cfg.V} must be >= K={cfg.K} (the window top-K merge "
+                "gathers K slots)")
+    if cfg.M > 2 * cfg.N - 1:
+        return (f"M={cfg.M} exceeds the {2 * cfg.N - 1} correlation lags of "
+                f"an N={cfg.N} region; clamp M to min(nb_mode, 2N-1)")
+    if cfg.K > 255:
+        # combo indices reach K * 2^20 and must stay below TBIG = 2^28
+        return f"K={cfg.K} > 255 breaks the pool tie order"
+    if cfg.min_hp < 0:
+        return (f"min_hp={cfg.min_hp} must be >= 0 (the wavefront tables' "
+                "padding entries assume it)")
+    if cfg.N > MAX_N:
+        return (f"N={cfg.N} exceeds {MAX_N}, the largest bucket the engine "
+                "was audited for")
+    return None
+
+
 class FoldEngine:
     """Batched fold engine for one (config, batch size, device)."""
 
     def __init__(self, cfg: EngineConfig, B: int, device="cuda"):
-        if cfg.V < cfg.K:
-            raise ValueError(f"V={cfg.V} must be >= K={cfg.K} (the "
-                             "window top-K merge gathers K slots)")
-        if cfg.M > 2 * cfg.N - 1:
-            raise ValueError(
-                f"M={cfg.M} exceeds the {2 * cfg.N - 1} correlation lags "
-                f"of an N={cfg.N} region; clamp M to min(nb_mode, 2N-1)")
-        if cfg.K > 255:
-            # combo indices reach K * 2^20 and must stay below TBIG = 2^28
-            raise ValueError(f"K={cfg.K} > 255 breaks the pool tie order")
-        if cfg.min_hp < 0:
-            raise ValueError(f"min_hp={cfg.min_hp} must be >= 0 (the "
-                             "wavefront tables' padding entries assume it)")
-        if cfg.N > MAX_N:
-            raise ValueError(f"N={cfg.N} exceeds {MAX_N}, the largest "
-                             "bucket the engine was audited for")
+        refusal = engine_refusal(cfg)
+        if refusal is not None:
+            raise ValueError(refusal)
         self.cfg = cfg
         self.B = B
         self.device = torch.device(device)
@@ -1050,7 +1057,8 @@ def fold_one(sequence, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
              gu_wei=1.0, *, device="cuda"):
     """Single-sequence API on the batched engine (reference fold()
     signature plus the device to run on).  A flagged fold is returned as
-    the engine made it: `fold` refolds those on the CPU."""
+    the engine made it, and a configuration the engine refuses raises
+    (engine_refusal): `fold` sends both to the CPU parity engine."""
     return _fold_one(sequence, nb_mode, max_stack, max_branch, min_hp,
                      min_nrj, traj, temp, gc_wei, au_wei, gu_wei, device)[0]
 
@@ -1059,7 +1067,8 @@ def flag_names(flag: int) -> str:
     return "+".join(c for b, c in FLAG_NAMES.items() if flag & b) or "none"
 
 
-# fold() calls whose engine fold was flagged and refolded by fold_cpu
+# fold() calls answered by fold_cpu: folds the engine flagged, and inputs
+# the engine refuses
 REFOLDS = 0
 
 
@@ -1069,20 +1078,33 @@ def fold(sequence, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
     """The package's `fold`: rafft_tpu.fold's signature and results, the
     final beam (and the trajectory with traj=True), plus the device.
 
-    Folds on the batched engine (fold_one); where the engine flags the
-    fold as possibly inexact (a FLAG_* bit), returns the sequential CPU
-    parity engine's fold instead, as sweep() does with flagged folds,
-    and logs the causes at INFO.  So the result equals rafft_tpu.fold's
-    on every input."""
+    Folds on the batched engine at fold_one's configuration, except where
+    the sequential CPU parity engine (fold_cpu, what rafft_tpu.fold runs)
+    must answer instead:
+
+    - inputs the engine refuses (engine_refusal): max_stack > 255 (the
+      pool's tie order), min_hp < 0 (the wavefront tables' padding) and
+      sequences over 4,096 nt (MAX_N, the largest bucket); no engine is
+      built for them;
+    - folds the engine flags as possibly inexact (a FLAG_* bit), as
+      sweep() refolds them.
+
+    Either is logged at INFO with its reason and counted in REFOLDS.  So
+    the result equals rafft_tpu.fold's on every input."""
     global REFOLDS
     args = (nb_mode, max_stack, max_branch, min_hp, min_nrj, traj, temp,
             gc_wei, au_wei, gu_wei)
-    out, flag = _fold_one(sequence, *args, device)
-    if not flag:
-        return out
+    reason = engine_refusal(fold_one_config(
+        len(sequence), nb_mode, max_stack, max_branch, min_hp, min_nrj, temp,
+        gc_wei, au_wei, gu_wei))
+    if reason is None:
+        out, flag = _fold_one(sequence, *args, device)
+        if not flag:
+            return out
+        reason = f"the engine flagged the fold ({flag_names(flag)})"
     from rafft_tpu_torch.engine import fold_cpu
 
-    _LOG.info("fold: the engine flagged a %d-nt fold (%s); refolding it "
-              "with fold_cpu", len(sequence), flag_names(flag))
+    _LOG.info("fold: a %d-nt fold goes to fold_cpu: %s", len(sequence),
+              reason)
     REFOLDS += 1
     return fold_cpu.fold(sequence, *args)

@@ -1,4 +1,4 @@
-"""Length-bucketed corpus sweep on one card (rafft_tpu/parallel/sweep.py).
+"""Length-bucketed corpus sweep (rafft_tpu/parallel/sweep.py).
 
 Sequences are bucketed by padded length and folded bucket by bucket with
 the PyTorch FoldEngine at the JAX sweep's per-bucket configuration.
@@ -14,15 +14,36 @@ bucket are skipped, as there.  With engine="cpu" (--engine cpu) every
 bucket is folded by the CPU parity engine through the pool and no
 device is touched.
 
+Data parallelism, the JAX sweep's mesh: with a list of k > 1 devices
+(`devices=`, --devices k for cards 0 to k-1) each bucket is folded by k
+worker processes, one per device, each on its strided share of the
+bucket with a batch of ceil(B / k).  Processes, not one thread driving k
+engines: a fold step is bound by the host's launches, which one Python
+thread would issue for the k devices one after another.  Everything
+after the fold (the refold, the journals, the scores) stays in the
+calling process.  Multi-process runs (--coordinator, --num_processes,
+--process_id; parallel/launch.py starts them on one machine) fold
+`records[process_id::num_processes]` in each process, write
+`<out>.part<process_id>`, reduce the mean scores over the process group
+(parallel/distributed.py) and merge the parts in process 0.  --devices
+k combines with them where each process has a machine of its own and the
+default --device: it then spreads its share over that machine's cards 0
+to k-1.  Beside a --device that names one device, as the launcher gives
+every process it starts, --devices is refused: every process of the
+machine would take the same k cards.
+
 CLI:
   python -m rafft_tpu_torch.parallel.sweep --csv <benchmark.csv> \
       --out results.csv [--device cuda] [--engine torch|cpu] \
-      [-n 100 -ms 50] [--limit 200]
+      [-n 100 -ms 50] [--limit 200] [--devices k] \
+      [--coordinator HOST:PORT --num_processes P --process_id I]
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
 import csv
 import json
 import multiprocessing as mp
@@ -30,7 +51,10 @@ import os
 import time
 
 import numpy as np
+import torch
 
+from rafft_tpu_torch import _build
+from rafft_tpu_torch.engine import wavefront as WT
 from rafft_tpu_torch.engine.fold_torch import (FLAG_NAMES, EngineConfig,
                                                FoldEngine)
 from rafft_tpu_torch.scoring import best_of, score_structures
@@ -50,6 +74,17 @@ def _cpu_refold(task):
                             max_branch=max_branch)
     return (i, [(s.str_struct, s.energy) for s in structs],
             fold_cpu.EVALUATOR)
+
+
+def _fold_share(task):
+    """Worker process: fold one device's share of a bucket.  Returns
+    [(position in the share, rows, flagged)] and the wavefront launches
+    this fold made in this process."""
+    cfg, B, device, seqs, threads = task
+    torch.set_num_threads(threads)
+    before = WT.LAUNCHES
+    out = list(FoldEngine(cfg, B=B, device=device).run_stream(seqs))
+    return out, WT.LAUNCHES - before
 
 
 def load_benchmark_csv(path):
@@ -110,21 +145,29 @@ def _result(record, rows, best_of_k):
 def sweep(records, nb_mode=100, max_stack=50, max_branch=1000,
           buckets=DEFAULT_BUCKETS, batch=16, best_of_k=False, progress=None,
           checkpoint=None, save_beams=None, stats=None, workers=None,
-          engine="torch", *, device="cuda"):
-    """Fold every record on `device`; returns result dicts in input order.
+          engine="torch", *, device="cuda", devices=None):
+    """Fold every record on `device`, or split over `devices`; returns
+    result dicts in input order.
 
     The arguments and outputs are those of rafft_tpu.parallel.sweep.sweep
-    (without its mesh; engine is "torch" where that says "jax"):
-    save_beams appends one jsonl row per folded sequence, checkpoint
-    journals finished buckets and skips them on restart, stats receives
-    per-bucket timings, the fallback count, the flag histogram and, where
-    folds ran on the CPU parity engine, the energy evaluator they ran
-    (`refold_evaluator`).  engine="cpu" folds every bucket on the CPU
-    parity engine through the pool and never touches `device`.  Records
+    (engine is "torch" where that says "jax", `devices` where that takes
+    a mesh): save_beams appends one jsonl row per folded sequence,
+    checkpoint journals finished buckets and skips them on restart, stats
+    receives per-bucket timings, the fallback count, the flag histogram,
+    per device the rows it folded and its wavefront launches
+    (`devices`), and, where folds ran on the CPU parity engine, the
+    energy evaluator they ran (`refold_evaluator`).  devices: a list of
+    k > 1 devices (repeats allowed) folds each bucket in k worker
+    processes, one per device, `batch` split over them; a worker that
+    fails makes the sweep raise.  engine="cpu" folds every bucket on the
+    CPU parity engine through the pool and touches no device.  Records
     longer than the largest bucket are skipped."""
     if engine not in ("torch", "cpu"):
         raise ValueError(f"engine must be 'torch' or 'cpu', got {engine!r}")
     workers = workers or max(1, mp.cpu_count())
+    devices = list(devices or [device])
+    k = len(devices)
+    per_device = [dict(device=str(d), rows=0, launches=0) for d in devices]
 
     by_bucket: dict[int, list[int]] = {}
     for i, (seq, _t, _n) in enumerate(records):
@@ -144,80 +187,92 @@ def sweep(records, nb_mode=100, max_stack=50, max_branch=1000,
                 results[row.pop("_idx")] = row
                 done_buckets.add(row.pop("_bucket"))
 
-    for N, idxs in sorted(by_bucket.items()):
-        if N in done_buckets:
-            continue
-        t_bucket = time.time()
-        beam_fh = open(save_beams, "a") if save_beams else None
+    with contextlib.ExitStack() as stack:
+        pools = []
+        if engine == "torch" and k > 1:
+            if any(torch.device(d).type == "cuda" for d in devices):
+                _build.build("wavefront")   # once, before the workers load it
+            # spawn: the parent may hold a CUDA context, which a forked
+            # child would inherit broken; one pool per device keeps each
+            # worker on its own device for the whole sweep
+            ctx = mp.get_context("spawn")
+            pools = [stack.enter_context(concurrent.futures.ProcessPoolExecutor(
+                1, mp_context=ctx)) for _ in devices]
+        for N, idxs in sorted(by_bucket.items()):
+            if N in done_buckets:
+                continue
+            t_bucket = time.time()
+            beam_fh = open(save_beams, "a") if save_beams else None
 
-        def finish(i, rows, flagged):
-            seq = records[i][0]
-            if not rows:
-                rows = [("." * len(seq), 0.0)]
-            if beam_fh is not None:
-                beam_fh.write(json.dumps(dict(
-                    name=records[i][2], seq=seq, flagged=int(flagged),
-                    beam=[[d, float(np.float32(ee))] for d, ee in rows]))
-                    + "\n")
-            results[i] = _result(records[i], rows, best_of_k)
+            def finish(i, rows, flagged):
+                seq = records[i][0]
+                if not rows:
+                    rows = [("." * len(seq), 0.0)]
+                if beam_fh is not None:
+                    beam_fh.write(json.dumps(dict(
+                        name=records[i][2], seq=seq, flagged=int(flagged),
+                        beam=[[d, float(np.float32(ee))] for d, ee in rows]))
+                        + "\n")
+                results[i] = _result(records[i], rows, best_of_k)
 
-        n_done = 0
-        flag_of: dict[int, int] = {}
-        if engine == "cpu":
-            # no card: the whole bucket goes to the pool
-            stream = ()
-            pending = [(i, records[i][0], nb_mode, max_stack, max_branch)
-                       for i in idxs]
-        else:
-            pending = []
-            eng = FoldEngine(bucket_config(N, nb_mode, max_stack, max_branch),
-                             B=bucket_batch(batch, N), device=device)
-            stream = eng.run_stream([records[i][0] for i in idxs])
-        for local_i, rows, flagged in stream:
-            i = idxs[local_i]
-            if flagged:
-                # the exactness escape hatch: the CPU parity engine
-                # refolds what the engine could not guarantee
-                n_fallback += 1
-                for bit, cause in FLAG_NAMES.items():
-                    if flagged & bit:
-                        flag_hist[cause] = flag_hist.get(cause, 0) + 1
-                flag_of[i] = flagged
-                pending.append((i, records[i][0], nb_mode, max_stack,
-                                max_branch))
+            n_done = 0
+            flag_of: dict[int, int] = {}
+            if engine == "cpu":
+                # no card: the whole bucket goes to the pool
+                stream = ()
+                pending = [(i, records[i][0], nb_mode, max_stack, max_branch)
+                           for i in idxs]
             else:
-                finish(i, rows, 0)
-            n_done += 1
+                pending = []
+                stream = _bucket_stream(
+                    bucket_config(N, nb_mode, max_stack, max_branch),
+                    bucket_batch(batch, N), [records[i][0] for i in idxs],
+                    devices, pools, per_device)
+            for local_i, rows, flagged in stream:
+                i = idxs[local_i]
+                if flagged:
+                    # the exactness escape hatch: the CPU parity engine
+                    # refolds what the engine could not guarantee
+                    n_fallback += 1
+                    for bit, cause in FLAG_NAMES.items():
+                        if flagged & bit:
+                            flag_hist[cause] = flag_hist.get(cause, 0) + 1
+                    flag_of[i] = flagged
+                    pending.append((i, records[i][0], nb_mode, max_stack,
+                                    max_branch))
+                else:
+                    finish(i, rows, 0)
+                n_done += 1
+                if progress:
+                    progress(N, n_done, len(idxs))
+            if pending:
+                # forkserver children start from a fresh interpreter: no
+                # CUDA context is inherited
+                ctx = mp.get_context("forkserver")
+                with ctx.Pool(min(len(pending), workers)) as pool:
+                    for i, rows, evaluator in pool.imap_unordered(
+                            _cpu_refold, pending):
+                        evaluators.add(evaluator)
+                        finish(i, rows, flag_of.get(i, 0))
+                        if engine == "cpu":
+                            n_done += 1
+                            if progress:
+                                progress(N, n_done, len(idxs))
+            if beam_fh is not None:
+                beam_fh.close()
+            if checkpoint:
+                with open(checkpoint, "a") as fh:
+                    for i in idxs:
+                        if results[i] is not None:
+                            row = dict(results[i], _idx=i, _bucket=N)
+                            fh.write(json.dumps(row) + "\n")
+            if stats is not None:
+                stats.setdefault("buckets", {})[str(N)] = dict(
+                    n=len(idxs), secs=round(time.time() - t_bucket, 1),
+                    batch=bucket_batch(batch, N))
             if progress:
-                progress(N, n_done, len(idxs))
-        if pending:
-            # forkserver children start from a fresh interpreter: no CUDA
-            # context is inherited
-            ctx = mp.get_context("forkserver")
-            with ctx.Pool(min(len(pending), workers)) as pool:
-                for i, rows, evaluator in pool.imap_unordered(
-                        _cpu_refold, pending):
-                    evaluators.add(evaluator)
-                    finish(i, rows, flag_of.get(i, 0))
-                    if engine == "cpu":
-                        n_done += 1
-                        if progress:
-                            progress(N, n_done, len(idxs))
-        if beam_fh is not None:
-            beam_fh.close()
-        if checkpoint:
-            with open(checkpoint, "a") as fh:
-                for i in idxs:
-                    if results[i] is not None:
-                        row = dict(results[i], _idx=i, _bucket=N)
-                        fh.write(json.dumps(row) + "\n")
-        if stats is not None:
-            stats.setdefault("buckets", {})[str(N)] = dict(
-                n=len(idxs), secs=round(time.time() - t_bucket, 1),
-                batch=bucket_batch(batch, N))
-        if progress:
-            progress(N, len(idxs), len(idxs),
-                     done=True, secs=time.time() - t_bucket)
+                progress(N, len(idxs), len(idxs),
+                         done=True, secs=time.time() - t_bucket)
     if n_fallback:
         print(f"[sweep] {n_fallback} sequences re-folded on the CPU "
               f"parity engine (enumeration/budget flags: {flag_hist})",
@@ -225,9 +280,38 @@ def sweep(records, nb_mode=100, max_stack=50, max_branch=1000,
     if stats is not None:
         stats["n_fallback"] = n_fallback
         stats["flag_causes"] = flag_hist
+        if engine == "torch":
+            stats["devices"] = per_device
         if evaluators:
             stats["refold_evaluator"] = "+".join(sorted(evaluators))
     return results
+
+
+def _bucket_stream(cfg, B, seqs, devices, pools, per_device):
+    """(index in seqs, rows, flagged) of every fold of a bucket at batch
+    B: on the one device in this process, or in the device pools'
+    workers, each on its strided share at batch ceil(B / k); a worker's
+    folds come when it finishes.  Counts each device's rows and
+    wavefront launches into per_device."""
+    k = len(devices)
+    if k == 1:
+        before = WT.LAUNCHES
+        for out in FoldEngine(cfg, B=B, device=devices[0]).run_stream(seqs):
+            per_device[0]["rows"] += 1
+            yield out
+        per_device[0]["launches"] += WT.LAUNCHES - before
+        return
+    task = lambda w: (cfg, -(-B // k), devices[w], seqs[w::k],
+                      torch.get_num_threads())
+    futs = {pool.submit(_fold_share, task(w)): w
+            for w, pool in enumerate(pools) if seqs[w::k]}
+    for fut in concurrent.futures.as_completed(futs):
+        w = futs[fut]
+        out, launches = fut.result()
+        per_device[w]["rows"] += len(out)
+        per_device[w]["launches"] += launches
+        for j, rows, flagged in out:
+            yield w + j * k, rows, flagged
 
 
 def write_results_csv(results, path, selection="best_nrj"):
@@ -274,7 +358,22 @@ def main(argv=None):
     ap.add_argument("--save-beams", dest="save_beams",
                     help="jsonl path: full saved beam per sequence, for "
                          "offline best-of-k re-scoring")
+    ap.add_argument("--devices", type=int,
+                    help="data-parallel card count: cards 0 to k-1, one "
+                         "worker process each (in place of --device, so "
+                         "not with a --device that names one)")
+    ap.add_argument("--coordinator",
+                    help="host:port of process 0 (multi-process mode)")
+    ap.add_argument("--num_processes", type=int, default=1)
+    ap.add_argument("--process_id", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.devices is not None and args.device != "cuda":
+        # --devices k takes cards 0 to k-1 whatever --device says: with a
+        # named device (each launched process gets its own) every process
+        # of a machine would fold on the same k cards
+        ap.error(f"--devices {args.devices} takes cards 0 to "
+                 f"{args.devices - 1} in place of --device {args.device}; "
+                 f"give one or the other")
 
     records = load_benchmark_csv(args.csv)
     if args.max_len:
@@ -283,6 +382,22 @@ def main(argv=None):
         records = [r for r in records if len(r[0]) >= args.min_len]
     if args.limit:
         records = records[: args.limit]
+
+    devices = None
+    if args.devices and args.devices > 1:
+        from rafft_tpu_torch.parallel.mesh import data_devices
+        devices = data_devices(args.devices)
+
+    multihost = args.coordinator is not None
+    if multihost:
+        from rafft_tpu_torch.parallel.distributed import (init_multihost,
+                                                          shard_records)
+        pid, pcount, _ld, _gd = init_multihost(
+            args.coordinator, args.num_processes, args.process_id,
+            devices or [args.device])
+        print(f"[multihost] process {pid}/{pcount}: "
+              f"{len(_ld)} local / {len(_gd)} global devices", flush=True)
+        records = shard_records(records, pid, pcount)
 
     def progress(N, done_n, total, done=False, secs=None):
         if done:
@@ -298,15 +413,42 @@ def main(argv=None):
                     progress=progress, checkpoint=args.checkpoint,
                     save_beams=args.save_beams, stats=stats,
                     workers=args.workers, engine=args.engine,
-                    device=args.device)
+                    device=args.device, devices=devices)
     dt = time.time() - t0
+    sel = "best_of_k" if args.best_of_k else "best_nrj"
     manifest = dict(argv=vars(args), n_records=len(records),
                     elapsed_s=round(dt, 1), **stats)
-    with open(f"{args.out}.manifest.json", "w") as fh:
+    # one manifest per process: its records, timings and device counts
+    where = f"{args.out}.part{pid}" if multihost else args.out
+    with open(f"{where}.manifest.json", "w") as fh:
         json.dump(manifest, fh, indent=1, sort_keys=True)
         fh.write("\n")
-    write_results_csv(results, args.out,
-                      "best_of_k" if args.best_of_k else "best_nrj")
+    if multihost:
+        # every process writes its part; process 0 merges them (shared
+        # filesystem, the reference's CSV aggregation) and the mean
+        # scores reduce over the process group
+        from rafft_tpu_torch.parallel.distributed import (global_mean,
+                                                          merge_parts,
+                                                          shutdown)
+        part = f"{args.out}.part{pid}"
+        write_results_csv(results, part, sel)
+        with open(part, "a") as fh:
+            fh.write("#done\n")
+        ok = [r for r in results if r]
+        mean_ppv = global_mean(
+            float(np.mean([r["pvv"] for r in ok])) if ok else 0.0, len(ok))
+        mean_sens = global_mean(
+            float(np.mean([r["sens"] for r in ok])) if ok else 0.0, len(ok))
+        try:
+            if pid == 0:
+                header = "seq,len_seq,struct,nrj,nbp,pvv,sens,name\n"
+                ntot = merge_parts(args.out, pcount, header)
+                print(f"{ntot} sequences merged; global mean PPV "
+                      f"{mean_ppv:.2f} mean sens {mean_sens:.2f}")
+        finally:
+            shutdown()
+        return
+    write_results_csv(results, args.out, sel)
     if args.out_bk:
         write_results_csv(results, args.out_bk, "best_of_k")
     ok = [r for r in results if r]

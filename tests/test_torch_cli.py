@@ -5,11 +5,14 @@ its FoldEngine on device="cpu", the reference with the sequential CPU
 parity engine, so their standard outputs must be equal byte for byte.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
 from rafft_tpu.cli import fold_cli as JCLI
 from rafft_tpu_torch.cli import fold_cli as TCLI
+from rafft_tpu_torch.engine import fold_torch as FT
 
 # the suite runs in several worker processes at once: one intra-op
 # thread per process keeps torch from oversubscribing the cores
@@ -70,3 +73,22 @@ def test_cli_engine_choices():
     assert TCLI.parse_arguments(["-s", "ACGU", "--engine", "cpu"]).engine == "cpu"
     with pytest.raises(SystemExit):
         TCLI.parse_arguments(["-s", "ACGU", "--engine", "jax"])
+
+
+@pytest.mark.parametrize("flags", [["-ms", "5"], ["-ms", "5", "--traj"]])
+def test_cli_default_refolds_a_flagged_fold(flags, monkeypatch, capsys):
+    """With a seen-set of 24 slots the engine flags the fold; the port's
+    default engine answers it with the CPU parity engine, so its stdout
+    equals the reference CLI's default (whose engine is that oracle)."""
+    seq = README_SEQ[:46]
+    cut = FT.fold_one_config
+    monkeypatch.setattr(FT, "fold_one_config", lambda *a: dataclasses.replace(
+        cut(*a), S=24))
+    assert FT._fold_one(seq, 100, 5, 1000, 3, 0.0, False, 37.0, 3.0, 2.0, 1.0,
+                        "cpu")[1] & FT.FLAG_SEEN
+    JCLI.main(["-s", seq, *flags])
+    want = capsys.readouterr().out
+    before = FT.REFOLDS
+    TCLI.main(["--device", "cpu", "-s", seq, *flags])
+    assert capsys.readouterr().out == want
+    assert FT.REFOLDS == before + 1

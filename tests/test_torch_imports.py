@@ -51,6 +51,7 @@ from rafft_tpu_torch.cli import kin_cli
 from rafft_tpu_torch.energy import features, EnergyParams, eval_structure_int
 from rafft_tpu_torch.kin import plot
 from rafft_tpu_torch.tools import bench_mfe
+from rafft_tpu_torch.parallel import distributed, dryrun, launch, mesh
 from rafft_tpu_torch.viz import layout, plot_path, surface
 seq = "GGGAAACCCAAAGGGAAACCC"
 mfe = mfe_batch([seq, "ACGU"], device="cpu")

@@ -168,6 +168,55 @@ def test_root_fold_refolds_a_flagged_fold(monkeypatch, caplog):
     assert [_rows(s) for s in traj] == [_rows(s) for s in want_traj]
 
 
+@pytest.mark.parametrize("kw", [dict(max_stack=256), dict(min_hp=-1)],
+                         ids=["max_stack_256", "min_hp_-1"])
+def test_root_fold_takes_what_the_engine_refuses(kw, caplog):
+    """FoldEngine refuses K > 255 and min_hp < 0; the root fold sends
+    those calls to fold_cpu (logged, counted) and so equals
+    rafft_tpu.fold, final beam and trajectory."""
+    seq = FOLD_ARGS[0][0][:43]
+    cfg = FT.fold_one_config(len(seq), 100, kw.get("max_stack", 1), 100,
+                             kw.get("min_hp", 3))
+    assert FT.engine_refusal(cfg) is not None
+    with pytest.raises(ValueError):
+        FT.fold_one(seq, device="cpu", **kw)
+    before = FT.REFOLDS
+    with caplog.at_level(logging.INFO, logger=FT.__name__):
+        got, traj = rafft_tpu_torch.fold(seq, traj=True, device="cpu", **kw)
+    assert FT.REFOLDS == before + 1
+    assert FT.engine_refusal(cfg) in caplog.text
+    want, want_traj = rafft_tpu.fold(seq, traj=True, **kw)
+    assert _rows(got) == _rows(want) and len(got) >= 1
+    assert [_rows(s) for s in traj] == [_rows(s) for s in want_traj]
+
+
+def test_root_fold_sends_long_sequences_to_fold_cpu(monkeypatch, caplog):
+    """Past 4,096 nt (MAX_N) the root fold builds no engine and returns
+    fold_cpu's answer for the same arguments (fold_cpu itself is patched:
+    folding 4,200 nt here would take minutes)."""
+    from rafft_tpu_torch.engine import fold_cpu
+
+    calls = []
+
+    def fake_fold(seq, *args):
+        calls.append((len(seq), args))
+        return ["fold_cpu's beam"]
+
+    def no_engine(*a, **kw):
+        raise AssertionError("an engine was built")
+
+    monkeypatch.setattr(fold_cpu, "fold", fake_fold)
+    monkeypatch.setattr(FT, "FoldEngine", no_engine)
+    seq = "GGGGAAAACCCC" * 350
+    before = FT.REFOLDS
+    with caplog.at_level(logging.INFO, logger=FT.__name__):
+        got = rafft_tpu_torch.fold(seq, 20, 3, 50, device="cpu")
+    assert got == ["fold_cpu's beam"]
+    assert calls == [(4200, (20, 3, 50, 3, 0.0, False, 37.0, 3.0, 2.0, 1.0))]
+    assert FT.REFOLDS == before + 1
+    assert f"exceeds {FT.MAX_N}" in caplog.text
+
+
 def test_drawing_modules_import_without_matplotlib_or_sklearn():
     script = r"""
 import sys
