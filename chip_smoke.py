@@ -130,6 +130,19 @@ result line):
                 process at B=16 against two sharing cuda:0 at B=8 each,
                 medians of 3 alternated passes after a warm-up (printed,
                 not gated);
+ 9e. bench    - the port's benchmark entry point, tools/bench.py's run on
+                the card at 3 passes a cell (the headline's 256 rows of
+                <= 120 nt, and 256/16/8/4 rows of the 128/256/512/1024
+                buckets at the sweep's configurations): every fold equals
+                the journal (beam, energies and flag 0) or, on journal
+                rows 443, 567, 947 and 1262, the committed oracle beam; a
+                flagged row carries the journal's flag bits; the line
+                covers the 2,294 journal rows and names the card, and is
+                printed prefixed `bench:`.  Then tools/bench_full.py's
+                batch scan (the headline rows at B = 16, 32, 64: seq/s and
+                peak), its folds held in the same way, and the kernel on
+                one real step at each B (800, 1,600 and 3,200 beam rows x
+                16 x 128) against the plain version beside its bound;
  10. full     - with --full only: sweep() over all 2,294 journal rows,
                 the flagged ones refolded on the CPU; every beams-journal
                 row equals the committed journal or, on the rows where
@@ -167,7 +180,6 @@ import argparse
 import concurrent.futures
 import contextlib
 import csv
-import gzip
 import io
 import json
 import multiprocessing
@@ -199,7 +211,9 @@ from rafft_tpu_torch.parallel import sweep as TS
 from rafft_tpu_torch.parallel.sweep import bucket_batch, bucket_config, sweep
 from rafft_tpu_torch.native import native_oracle
 from rafft_tpu_torch.struct import pair_table, parse_rafft_output
+from rafft_tpu_torch.tools import bench, bench_full
 from rafft_tpu_torch.tools.bench_mfe import mfe_bucket_batch, mfe_records
+from rafft_tpu_torch.tools.corpus import journal
 from rafft_tpu_torch.tools.measure import (KERNEL_SHAPES, bucket_rows,
                                            capture_kernel_call, event_ms,
                                            first_difference_is_a_tie,
@@ -209,7 +223,6 @@ from rafft_tpu_torch.tools.measure import (KERNEL_SHAPES, bucket_rows,
                                            seeded_sequence)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-JOURNAL = os.path.join(ROOT, "benchmarks", "artifacts", "beams_100n50.jsonl.gz")
 ARTIFACTS = os.path.join(ROOT, "benchmarks", "artifacts")
 REFS = os.path.join(ROOT, "rafft_tpu_torch", "testdata", "chip_smoke_refs.json")
 HEADLINE = EngineConfig(N=128, K=50, M=100, R=16, V=4096, W=8, CPLX=512,
@@ -243,10 +256,6 @@ def phase(fn):
         log(f"[{fn.__name__[6:]}] phase took {time.perf_counter() - t0:.2f} s")
         return out
     return run
-
-
-def journal():
-    return [json.loads(line) for line in gzip.open(JOURNAL, "rt")]
 
 
 @phase
@@ -1214,6 +1223,79 @@ def phase_multi(rows_all, smi):
     return sum(launches.values())
 
 
+def _bench_check(what, folded, want):
+    """Every (seq, rows, flagged) of a bench cell against `want`: seq ->
+    (beam, flag), the journal's, or the committed oracle's where the
+    journal holds a TPU-run artifact.  Unflagged folds must give the beam,
+    structures and energies in order, with flag 0; flagged rows carry
+    their flag bits only (their beams come from the CPU refold).  Returns
+    the counts held to the oracle and to flags only."""
+    bad, n_oracle, n_flagged = [], 0, 0
+    for i, (seq, rows, flag) in enumerate(folded):
+        beam, jflag, oracle = want[seq]
+        if jflag:
+            n_flagged += 1
+            if flag != jflag:
+                bad.append((i, len(seq), flag, jflag))
+        elif flag != 0 or rows != beam:
+            bad.append((i, len(seq), flag, 0))
+        n_oracle += oracle
+    if bad:
+        raise AssertionError(f"bench {what}: {len(bad)}/{len(folded)} folds "
+                             f"differ (index in the cell, length, flag, "
+                             f"journal flag): {bad[:8]}")
+    return n_oracle, n_flagged
+
+
+@phase
+def phase_bench(rows_all, refs):
+    """tools/bench.py's run at 3 passes a cell, then bench_full's batch
+    scan, every fold held to the journal; the kernel on one real step of
+    each B of the scan.  Returns the launches of both and the steps."""
+    want = {r["seq"]: ([(db, float(e)) for db, e in r["beam"]],
+                       r["flagged"], False) for r in rows_all}
+    for o in refs["oracle"]:
+        want[o["seq"]] = ([tuple(x) for x in o["beam"]], 0, True)
+    folds = {}
+    WT.LAUNCHES = 0
+    line = bench.run(device="cuda", passes=3, folds=folds)
+    launches = WT.LAUNCHES
+    if launches == 0:
+        raise AssertionError("the bench never launched the wavefront kernel")
+    for cell, folded in folds.items():
+        n_oracle, n_flagged = _bench_check(cell, folded, want)
+        log(f"[bench] {cell}: {len(folded)}/{len(folded)} folds equal the "
+            f"journal ({n_oracle} the oracle, {n_flagged} flagged held to "
+            f"their flags)")
+    if (line["corpus_covered"] != len(rows_all)
+            or line["device"] != torch.cuda.get_device_name(0)):
+        raise AssertionError(f"bench line: covered {line['corpus_covered']}, "
+                             f"device {line['device']}")
+    log(f"[bench] wavefront launches {launches}")
+    log("bench: " + json.dumps(line))
+
+    seqs = [seq for seq, _rows, _flag in folds["headline"]]
+    scan_folds = {}
+    WT.LAUNCHES = 0
+    scan = bench_full.batch_scan(seqs, "cuda", folds=scan_folds)
+    scan_launches = WT.LAUNCHES
+    if scan_launches == 0:
+        raise AssertionError("the scan never launched the wavefront kernel")
+    steps = []
+    for r in scan:
+        _bench_check(f"scan B={r['B']}", scan_folds[r["B"]], want)
+        log(f"[bench] scan B={r['B']}: {r['n']}/{r['n']} folds equal the "
+            f"journal; {r['seq_s']:.3f} seq/s ({r['secs']:.3f} s); peak "
+            f"{r['peak_mib']:.1f} MiB")
+        args = capture_kernel_call(bench.engine(bench.HEADLINE_N, "cuda",
+                                                r["B"]),
+                                   seqs[:r["B"]], every=WT.check_layout)
+        steps.append(_kernel_vs_bound(f"scan step B={r['B']}", args,
+                                      bench.HEADLINE_N, real_step=True))
+    log(f"[bench] scan wavefront launches {scan_launches}")
+    return {"": launches, "_scan": scan_launches}, steps
+
+
 @phase
 def phase_full(rows_all, refs):
     """sweep() over the whole journal, flagged folds refolded on the CPU."""
@@ -1344,7 +1426,7 @@ def main(argv=None):
     ap.add_argument("--only", help="comma-separated phases to run after "
                     "device and build (kernel, fold_one, oracle, weights, "
                     "headline, loops, buckets, k200, long, sweep, cli, mfe, "
-                    "api, multi): a "
+                    "api, multi, bench): a "
                     "partial run for finding faults, which prints no result "
                     "line")
     args = ap.parse_args(argv)
@@ -1375,7 +1457,8 @@ def main(argv=None):
         cli=lambda: phase_cli(refs),
         mfe=lambda: phase_mfe(rows, refs),
         api=lambda: counted("api", (phase_api(refs), [])),
-        multi=lambda: counted("multi", (phase_multi(rows, smi), [])))
+        multi=lambda: counted("multi", (phase_multi(rows, smi), [])),
+        bench=lambda: counted("bench", phase_bench(rows, refs)))
     only = args.only.split(",") if args.only else list(phases)
     for name in only:
         phases[name]()

@@ -10,6 +10,10 @@ setup(
     package_data={"rafft_tpu_torch": ["csrc/*.cu", "native/*.cpp",
                                       "testdata/*.json"]},
     scripts=["bin/rafft", "bin/rafft_kin"],
+    entry_points={"console_scripts": [
+        "rafft-torch = rafft_tpu_torch.cli.fold_cli:main",
+        "rafft-kin-torch = rafft_tpu_torch.cli.kin_cli:main",
+    ]},
     python_requires=">=3.10",
     install_requires=["numpy", "scipy"],
     extras_require={

@@ -92,3 +92,24 @@ def test_cli_default_refolds_a_flagged_fold(flags, monkeypatch, capsys):
     TCLI.main(["--device", "cpu", "-s", seq, *flags])
     assert capsys.readouterr().out == want
     assert FT.REFOLDS == before + 1
+
+
+@pytest.mark.parametrize("name", ["rafft-torch", "rafft-kin-torch"])
+def test_console_script_resolves(name):
+    """setup.py's console scripts for the port's CLIs (the counterparts
+    of bin/rafft and bin/rafft_kin) name a callable."""
+    import ast
+    import importlib
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "setup.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    kw = next(k for n in ast.walk(tree) if isinstance(n, ast.Call)
+              for k in n.keywords if k.arg == "entry_points")
+    scripts = dict(s.split(" = ") for s in
+                   ast.literal_eval(kw.value)["console_scripts"])
+    module, attr = scripts[name].split(":")
+    assert module.startswith("rafft_tpu_torch.cli.")
+    assert callable(getattr(importlib.import_module(module), attr))

@@ -51,6 +51,10 @@ from rafft_tpu_torch.cli import kin_cli
 from rafft_tpu_torch.energy import features, EnergyParams, eval_structure_int
 from rafft_tpu_torch.kin import plot
 from rafft_tpu_torch.tools import bench_mfe
+from rafft_tpu_torch.tools import bench, bench_full, corpus, measure_baseline
+_seqs, _counts, _ = corpus.by_bucket(corpus.corpus(), (128, 256, 512, 1024))
+assert _counts[128] == 1938 and len(corpus.headline_rows(corpus.corpus())) == 256
+assert bench.engine(128, "cpu").cfg == sweep.bucket_config(128, 100, 50, 1000)
 from rafft_tpu_torch.parallel import distributed, dryrun, launch, mesh
 from rafft_tpu_torch.viz import layout, plot_path, surface
 seq = "GGGAAACCCAAAGGGAAACCC"
