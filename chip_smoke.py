@@ -143,6 +143,25 @@ result line):
                 peak), its folds held in the same way, and the kernel on
                 one real step at each B (800, 1,600 and 3,200 beam rows x
                 16 x 128) against the plain version beside its bound;
+ 9f. tools    - the evaluators' host APIs and the fold engine's tools on
+                the card: eval_batch on every beam entry of the first 64
+                headline rows equals the journal's energies, eval_pt_scan
+                at N=4096 on the two 23S rRNAs' committed structures equals
+                eval_structure_int; tools/debug_seq.py finds no divergence
+                on row 7 (reference order); tools/debug_delta.py on row 7
+                under its journal best structure (N=128) and on the first
+                row of <= 32 nt under its own (N=32) finds no wrong dE,
+                every kernel call of both held to the layout contract and
+                the plain version's seven whole tables; tools/perfcheck.py
+                at NSEQ=16, B=16 has parity 16/16; sweep() with the
+                committed K=200 manifest's buckets (64 to 4096) over the 44
+                rows of sweep_200n200_tpu.ckpt.jsonl's 64 bucket at -n 200
+                -ms 200, flagged rows refolded on the CPU: each row equals
+                the committed row or, where that differs, fold_cpu's whole
+                beam (phase k200's rule); every kernel call of the same
+                fold at bucket_config(64, 200, 200, 1000), B=16, held to
+                the plain version's whole tables, and its 4th step timed
+                beside its bound;
  10. full     - with --full only: sweep() over all 2,294 journal rows,
                 the flagged ones refolded on the CPU; every beams-journal
                 row equals the committed journal or, on the rows where
@@ -211,9 +230,10 @@ from rafft_tpu_torch.parallel import sweep as TS
 from rafft_tpu_torch.parallel.sweep import bucket_batch, bucket_config, sweep
 from rafft_tpu_torch.native import native_oracle
 from rafft_tpu_torch.struct import pair_table, parse_rafft_output
-from rafft_tpu_torch.tools import bench, bench_full
+from rafft_tpu_torch.tools import (bench, bench_full, debug_delta, debug_seq,
+                                   perfcheck)
 from rafft_tpu_torch.tools.bench_mfe import mfe_bucket_batch, mfe_records
-from rafft_tpu_torch.tools.corpus import journal
+from rafft_tpu_torch.tools.corpus import journal, reference_order, short_rows
 from rafft_tpu_torch.tools.measure import (KERNEL_SHAPES, bucket_rows,
                                            capture_kernel_call, event_ms,
                                            first_difference_is_a_tie,
@@ -687,6 +707,23 @@ def _ckpt_rows(name):
         return {(r["name"], r["seq"]): r for r in map(json.loads, fh)}
 
 
+def _k200_row(beam, committed, what):
+    """The rule for a fold at -n 200 -ms 200: its best row equals the
+    committed sweep's row (struct, nrj) or, where it does not, its whole
+    beam equals fold_cpu's (the committed sweeps hold rows that are
+    artifacts of the run that wrote them).  Returns whether fold_cpu's
+    beam was the one that held; raises where neither does."""
+    beam = [tuple(b) for b in beam]
+    if beam[0] == (committed["struct"], committed["nrj"]):
+        return False
+    cpu = fold_cpu.fold(committed["seq"], nb_mode=200, max_stack=200,
+                        max_branch=1000)
+    if beam != [(x.str_struct, x.energy) for x in cpu]:
+        raise AssertionError(f"{what} differs from the committed sweep and "
+                             f"from fold_cpu")
+    return True
+
+
 @phase
 def phase_k200(rows_all):
     """-n 200 -ms 200 at full width: 3,200 beam rows at the 128 bucket."""
@@ -710,15 +747,7 @@ def phase_k200(rows_all):
                 # right all the same
                 flagged_equal += beam[0] == (w["struct"], w["nrj"])
                 continue
-            if beam[0] != (w["struct"], w["nrj"]):
-                # the committed K=50 journal has rows that are artifacts of
-                # the run that wrote it: hold such a row to the parity engine
-                cpu = fold_cpu.fold(r["seq"], nb_mode=200, max_stack=200,
-                                    max_branch=1000)
-                if beam != [(x.str_struct, x.energy) for x in cpu]:
-                    raise AssertionError(
-                        f"k200 N={N} row {i} ({r['name']}) differs from the "
-                        f"committed sweep and from fold_cpu")
+            if _k200_row(beam, w, f"k200 N={N} row {i} ({r['name']})"):
                 refolded.append(i)
         n_flagged = sum(map(bool, flags))
         if N == 128 and n_flagged > len(rows) // 2:
@@ -1296,6 +1325,186 @@ def phase_bench(rows_all, refs):
     return {"": launches, "_scan": scan_launches}, steps
 
 
+# the sweep's buckets in the committed K=200 manifest's argv
+K200_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def _tables(rows, N):
+    """codes, pair tables and lengths [B, N] of (seq, db) rows."""
+    codes = np.zeros((len(rows), N), np.int32)
+    pt = np.full((len(rows), N), -1, np.int32)
+    n = np.zeros(len(rows), np.int32)
+    for b, (seq, db) in enumerate(rows):
+        codes[b, :len(seq)] = encode_sequence(seq)
+        pt[b, :len(seq)] = pair_table(db)
+        n[b] = len(seq)
+    return codes, pt, n
+
+
+@phase
+def phase_tools(rows_all):
+    """The evaluators' host APIs, the fold engine's exactness tools and
+    the sweep's 64 bucket at -n 200 -ms 200 on the card.  Returns the
+    wavefront launches of each path that folds and the kernel records of
+    the new shapes."""
+    launches, steps = {}, []
+    ref = reference_order()
+    in_journal = {(r["seq"], r["name"]): r for r in rows_all}
+    # ---- eval_batch: every beam entry of the first 64 headline rows
+    head = [r for r in rows_all if len(r["seq"]) <= 120][:64]
+    entries = [(r["seq"], db, e) for r in head for db, e in r["beam"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ET.eval_batch(*_tables([x[:2] for x in entries], 128), device="cuda")
+    secs = time.perf_counter() - t0
+    want = np.array([round(e * 100) for _s, _db, e in entries], np.int32)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"eval_batch differs from the journal on "
+                             f"{int((got != want).sum())} beam entries")
+    log(f"[tools] eval_batch [{len(entries)}, 128] on the card: every "
+        f"energy equals the journal's ({secs:.3f} s, the tables' upload "
+        f"included)")
+    # ---- eval_pt_scan: the two 23S rRNAs' committed structures at N=4096
+    lt = list(_ckpt_rows("longtail.ckpt.jsonl").values())
+    codes, pt, n = (torch.as_tensor(x, device="cuda") for x in _tables(
+        [(r["seq"], r["struct"]) for r in lt], 4096))
+    dp = ET.device_params(37.0, 4096, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ET.eval_pt_scan(dp, codes, pt, n).tolist()
+    secs = time.perf_counter() - t0
+    want = [eval_structure_int(r["seq"], r["struct"]) for r in lt]
+    if got != want or want != [round(r["nrj"] * 100) for r in lt]:
+        raise AssertionError(f"eval_pt_scan {got}, eval_structure_int {want}")
+    log(f"[tools] eval_pt_scan [2, 4096] on the card: {got} equal "
+        f"eval_structure_int and longtail.ckpt.jsonl ({secs:.3f} s for the "
+        f"4,096-position walk)")
+
+    # ---- debug_seq: row 7 of <= 120 nt, reference order
+    seq7 = debug_seq.pick_sequence(7)
+    t0 = time.perf_counter()
+    want = debug_seq.cpu_trajectory(seq7, **debug_seq.CPU_ARGS)
+    cpu_secs = time.perf_counter() - t0
+    WT.LAUNCHES = 0
+    t0 = time.perf_counter()
+    d = debug_seq.first_divergence(
+        FoldEngine(debug_seq.CONFIG, B=1, device="cuda"), seq7, want)
+    secs = time.perf_counter() - t0
+    launches["_debug_seq"] = WT.LAUNCHES
+    if d.step is not None:
+        raise AssertionError("debug_seq row 7:\n" + "\n".join(
+            debug_seq.report(d)))
+    log(f"[tools] debug_seq row 7 ({len(seq7)} nt): "
+        f"{debug_seq.report(d)[0]} over {d.steps} steps and the final beam "
+        f"({secs:.2f} s; fold_cpu's trajectory {cpu_secs:.2f} s); wavefront "
+        f"launches {WT.LAUNCHES}")
+
+    # ---- debug_delta: row 7 under its journal best structure (N=128), and
+    # the first row of <= 32 nt under its journal best structure (N=32)
+    name7 = next(nm for s, _t, nm in ref if s == seq7)
+    s32, _t, name32 = next(r for r in ref if len(r[0]) <= 32)
+    cases = [(seq7, in_journal[(seq7, name7)]["beam"][0][0], name7),
+             (s32, in_journal[(s32, name32)]["beam"][0][0], name32)]
+    real, calls = FT.wavefront_tables, []
+
+    def spy(*args):
+        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args))
+        return real(*args)
+
+    FT.wavefront_tables = spy
+    WT.LAUNCHES = 0
+    try:
+        for seq, parent, name in cases:
+            rows = debug_delta.candidates_for(seq, parent, device="cuda")
+            bad = [r for r in rows if not r["ok"] and not r["unsup"]]
+            if bad or not rows:
+                raise AssertionError(f"debug_delta {name}:\n" + "\n".join(
+                    debug_delta.summary(rows)))
+            log(f"[tools] debug_delta {name} ({len(seq)} nt, N="
+                f"{calls[-1][2].shape[-1]}): {debug_delta.summary(rows)[0]}")
+    finally:
+        FT.wavefront_tables = real
+    launches["_debug_delta"] = WT.LAUNCHES
+    for args in calls:
+        WT.check_layout(*args)
+        _tables_equal(args, f"debug_delta, N={args[2].shape[-1]}")
+    log(f"[tools] debug_delta: {len(calls)} kernel calls "
+        f"{[tuple(a[2].shape) for a in calls]} keep the layout contract and "
+        f"give the plain version's 7 whole tables")
+    steps.append(_kernel_vs_bound("debug_delta step", calls[1], 32,
+                                  real_step=True))
+
+    # ---- perfcheck at NSEQ=16, B=16
+    WT.LAUNCHES = 0
+    pc = perfcheck.run(short_rows(ref), nseq=16, B=16, device="cuda",
+                       log=lambda m: log(f"[tools] perfcheck: {m}"))
+    launches["_perfcheck"] = WT.LAUNCHES
+    if pc["parity"] != (16, 16):
+        raise AssertionError(f"perfcheck parity {pc['parity']}")
+    log(f"[tools] perfcheck: wavefront launches {WT.LAUNCHES}")
+
+    # ---- the sweep's 64 bucket at -n 200 -ms 200, flagged rows refolded
+    rows64 = sorted((r for r in _ckpt_rows(
+        "sweep_200n200_tpu.ckpt.jsonl").values() if r["_bucket"] == 64),
+        key=lambda r: r["_idx"])
+    records = [(r["seq"], "." * len(r["seq"]), r["name"]) for r in rows64]
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    stats = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = os.path.join(tmp, "beams.jsonl")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        WT.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = sweep(records, nb_mode=200, max_stack=200, max_branch=1000,
+                    buckets=K200_BUCKETS, save_beams=path, stats=stats,
+                    device="cuda")
+        secs = time.perf_counter() - t0
+        launches["_sweep64"] = WT.LAUNCHES
+        peak = torch.cuda.max_memory_allocated()
+        saved = {(b["name"], b["seq"]): b for b in _beam_rows(path)}
+    n_cpu, flags = 0, []
+    for i, (r, out) in enumerate(zip(rows64, res)):
+        b = saved[(r["name"], r["seq"])]
+        if (out["struct"], out["nrj"]) != tuple(b["beam"][0]):
+            raise AssertionError(f"64 bucket row {i}: result and saved beam "
+                                 f"differ")
+        n_cpu += _k200_row(b["beam"], r, f"64 bucket row {i} ({r['name']})")
+        flags.append(b["flagged"])
+    if list(stats["buckets"]) != ["64"] or launches["_sweep64"] == 0:
+        raise AssertionError(f"the 64 bucket did not fold on the card: "
+                             f"{stats}")
+    log(f"[tools] sweep() 64 bucket at -n 200 -ms 200 (bucket_config(64, 200,"
+        f" 200, 1000), B={bucket_batch(16, 64)}): {len(rows64) - n_cpu}/"
+        f"{len(rows64)} rows equal sweep_200n200_tpu.ckpt.jsonl, {n_cpu} "
+        f"equal fold_cpu's beam instead; {stats['n_fallback']} flagged and "
+        f"refolded on the CPU, by cause {stats['flag_causes']} (row flags "
+        f"{[FT.flag_names(f) for f in flags if f]}); "
+        f"{len(rows64) / secs:.3f} seq/s ({secs:.3f} s, the refold "
+        f"included); peak {peak / 2**20:.1f} MiB; wavefront launches "
+        f"{launches['_sweep64']}")
+    # every call of the same fold, held to the plain version's tables
+    eng = FoldEngine(bucket_config(64, 200, 200, 1000),
+                     B=bucket_batch(16, 64), device="cuda")
+    held = []
+
+    def every(*args):
+        WT.check_layout(*args)
+        _tables_equal(args, f"64 bucket call {len(held)}")
+        held.append(tuple(args[2].shape))
+
+    step_args = capture_kernel_call(eng, [r["seq"] for r in rows64],
+                                    every=every)
+    log(f"[tools] the 64 bucket's fold: {len(held)} kernel calls "
+        f"{sorted(set(held))} keep the layout contract and give the plain "
+        f"version's 7 whole tables")
+    steps.append(_kernel_vs_bound("sweep64 step", step_args, 64,
+                                  real_step=True))
+    return launches, steps
+
+
 @phase
 def phase_full(rows_all, refs):
     """sweep() over the whole journal, flagged folds refolded on the CPU."""
@@ -1426,7 +1635,7 @@ def main(argv=None):
     ap.add_argument("--only", help="comma-separated phases to run after "
                     "device and build (kernel, fold_one, oracle, weights, "
                     "headline, loops, buckets, k200, long, sweep, cli, mfe, "
-                    "api, multi, bench): a "
+                    "api, multi, bench, tools): a "
                     "partial run for finding faults, which prints no result "
                     "line")
     args = ap.parse_args(argv)
@@ -1458,7 +1667,8 @@ def main(argv=None):
         mfe=lambda: phase_mfe(rows, refs),
         api=lambda: counted("api", (phase_api(refs), [])),
         multi=lambda: counted("multi", (phase_multi(rows, smi), [])),
-        bench=lambda: counted("bench", phase_bench(rows, refs)))
+        bench=lambda: counted("bench", phase_bench(rows, refs)),
+        tools=lambda: counted("tools", phase_tools(rows)))
     only = args.only.split(",") if args.only else list(phases)
     for name in only:
         phases[name]()

@@ -340,3 +340,82 @@ def analyze_pt(dp: DeviceParams, codes, pt, n):
     opening, -1 = exterior), is_open, and per-opening caches branches /
     first_child / mlsum / loop_e / mls / exts, plus energy [...]."""
     return _loops(dp, codes, pt, n)
+
+
+def eval_pt_scan(dp: DeviceParams, codes, pt, n):
+    """Integer energy of pair tables [..., N] -> [...] by a sequential
+    walk over the positions (eval_jax.eval_pt_scan), the evaluator of
+    O(N) memory for very long sequences.
+
+    A frame stack of depth N // 2 + 2 per table holds, for each open pair,
+    its branch count, the sum of its multiloop-stem terms and its first
+    child (q, r).  The terms of a pair that depend on its own two ends
+    alone (hairpin, multiloop closing stem, stem seen from outside,
+    exterior stem) are computed for every position at once before the
+    walk; the walk adds the two-loop term, which needs the first child.
+    The loop runs the same ops at every position and reads nothing back
+    to the host, so a walk of 4,096 positions stays queued on the card."""
+    N = codes.shape[-1]
+    D = N // 2 + 2
+    dev = codes.device
+    n1 = n[..., None]
+    ii = torch.arange(N, dtype=torch.int32, device=dev).expand(codes.shape)
+    valid = ii < n1
+    is_open = valid & (pt > ii)
+    is_close = valid & (pt >= 0) & (pt < ii)
+    # the pair closed at k opens at i: every closing position's terms
+    i = torch.where(is_close, pt, 0)
+    k = ii
+    keys = [_kmer_keys(codes, w) for w in (5, 6, 8)]
+    hp = _hairpin(dp, codes, n, i, k, *keys)
+    ml_close = dp.ml_closing + _ml_stem(
+        dp, _ptype(dp, _at(codes, n, k), _at(codes, n, i)),
+        _at(codes, n, k - 1), _at(codes, n, i + 1))
+    mls = _ml_stem(dp, _ptype(dp, _at(codes, n, i), _at(codes, n, k)),
+                   _at(codes, n, i - 1), _at(codes, n, k + 1))
+    ext = _ext_stem(dp, codes, n, i, k)
+
+    lead = codes.shape[:-1]
+    zeros = lambda *s: torch.zeros((*lead, *s), dtype=torch.int32, device=dev)
+    depth = zeros(1).long()
+    energy = zeros()
+    f_branches, f_mlsum, f_q, f_r = zeros(D), zeros(D), zeros(D), zeros(D)
+    at = lambda f, d: f.gather(-1, d)
+    for x in range(N):
+        op, cl = is_open[..., x:x + 1], is_close[..., x:x + 1]
+        i_x = i[..., x:x + 1]
+        nd = (depth + 1).clamp(max=D - 1)
+        pd = (depth - 1).clamp(min=0)
+        b = at(f_branches, depth)
+        il = _int_loop(dp, codes, n, i_x, k[..., x:x + 1], at(f_q, depth),
+                       at(f_r, depth))
+        loop_e = torch.where(
+            b == 0, hp[..., x:x + 1],
+            torch.where(b == 1, il, ml_close[..., x:x + 1]
+                        + at(f_mlsum, depth)))
+        top = torch.where(pd == 0, ext[..., x:x + 1], 0)
+        energy += torch.where(cl, loop_e + top, 0)[..., 0]
+        # push: an opening resets the frame above
+        f_branches.scatter_(-1, nd, torch.where(op, 0, at(f_branches, nd)))
+        f_mlsum.scatter_(-1, nd, torch.where(op, 0, at(f_mlsum, nd)))
+        # pop: a closing stem joins the frame below
+        pb = at(f_branches, pd)
+        first = cl & (pb == 0)
+        f_q.scatter_(-1, pd, torch.where(first, i_x, at(f_q, pd)))
+        f_r.scatter_(-1, pd, torch.where(first, x, at(f_r, pd)))
+        f_branches.scatter_(-1, pd, torch.where(cl, pb + 1, pb))
+        f_mlsum.scatter_(-1, pd, at(f_mlsum, pd)
+                         + torch.where(cl, mls[..., x:x + 1], 0))
+        depth = torch.where(op, nd, torch.where(cl, pd, depth))
+    return energy
+
+
+def eval_batch(codes, pt, n, temperature: float = 37.0, device="cuda"):
+    """Host API (eval_jax.eval_batch): the integer energies of numpy
+    [B, N] codes / pair tables and [B] lengths, evaluated on `device`;
+    returns a numpy int32 [B]."""
+    codes = np.asarray(codes)
+    N = codes.shape[-1]
+    dp = device_params(temperature, N, device)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=device)
+    return eval_pt(dp, t(codes), t(pt), t(n)).cpu().numpy()

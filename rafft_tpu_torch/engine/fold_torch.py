@@ -545,15 +545,16 @@ class FoldEngine:
                 (v * self.Z2[:N]).sum(-1) & MASK32)
 
     # ---------------- one step for the whole batch
-    def step(self, state):
-        """One fold step of every lane (fold_jax._seq_step, batched)."""
-        cfg, dp, dev = self.cfg, self.dp, self.device
-        K, R, M, N, V, S = cfg.K, cfg.R, cfg.M, cfg.N, cfg.V, cfg.S
+    def candidates(self, state):
+        """The first stages of a step: loop analysis, regions, the
+        wavefront tables and the lags they rank, and every candidate's
+        exact incremental dE.  Returns their tensors by name (step reads
+        them; tools/debug_delta.py holds the dE to the integer oracle)."""
+        cfg, dp = self.cfg, self.dp
+        K, N = cfg.K, cfg.N
         B = self.B
-        i32 = torch.int32
         codes, n, pt = state["codes"], state["n"], state["pt"]
-        energy, active, rorder = state["energy"], state["active"], state["rorder"]
-        done = state["done"]
+        active, rorder = state["active"], state["rorder"]
 
         keys = [_kmer_keys(codes, k) for k in (5, 6, 8)]
 
@@ -569,7 +570,6 @@ class FoldEngine:
         # non-integral weights the FFT correlation ranks the lags
         tabs = wavefront_tables(cfg, self.wtabs, rcodes, rpos, mlen,
                                 z1row, z2row)
-        m_ = mlen[..., None]
         if self.integral:
             cor = _lag_norm(cfg, mlen, tabs["cor_raw"][..., : 2 * N - 1])
         else:
@@ -585,6 +585,25 @@ class FoldEngine:
 
         delta, cplx, has, p0 = _candidate_delta(
             cfg, dp, codes, n, keys, pt, loops, rorder, rpos, ws)
+        return dict(rpos=rpos, rloc=rloc, rslot=rslot, mlen=mlen,
+                    lag_ok=lag_ok, ws=ws, hd1=hd1, hd2=hd2, delta=delta,
+                    cplx=cplx, has=has, p0=p0)
+
+    def step(self, state):
+        """One fold step of every lane (fold_jax._seq_step, batched)."""
+        cfg, dp, dev = self.cfg, self.dp, self.device
+        K, R, M, N, V, S = cfg.K, cfg.R, cfg.M, cfg.N, cfg.V, cfg.S
+        B = self.B
+        i32 = torch.int32
+        codes, n, pt = state["codes"], state["n"], state["pt"]
+        energy, active, rorder = state["energy"], state["active"], state["rorder"]
+        done = state["done"]
+
+        c = self.candidates(state)
+        rpos, rloc, rslot, mlen = c["rpos"], c["rloc"], c["rslot"], c["mlen"]
+        lag_ok, ws, hd1, hd2 = c["lag_ok"], c["ws"], c["hd1"], c["hd2"]
+        delta, cplx, has, p0 = c["delta"], c["cplx"], c["has"], c["p0"]
+        m_ = mlen[..., None]
 
         # ---- complex candidates: full eval under budget (complex first)
         flat_cplx = (cplx & lag_ok).reshape(B, -1)

@@ -66,6 +66,19 @@ final, traj = fold(seq, 8, 2, 16, traj=True, device="cpu")
 assert [s.str_struct for s in final] == [s.str_struct for s in res]
 _, _, structs, equi = kinetics(traj + [final], 10, 20, method="expm")
 assert abs(sum(p for _, _, p, _ in equi) - 1) < 1e-9 and structs
+# the fold engine's exactness tools, the corpus pipeline and the
+# evaluators' host APIs
+from rafft_tpu_torch.tools import (bench_parity, debug_delta, debug_seq,
+                                   fold_longtail, merge_corpus, perfcheck,
+                                   rescore_bk)
+from rafft_tpu_torch.energy import eval_torch
+assert len(corpus.reference_order()) == 2296
+rows = debug_delta.candidates_for(seq, "." * len(seq), device="cpu")
+assert rows and all(r["ok"] for r in rows if not r["unsup"]), rows
+import numpy as np
+z = np.zeros((1, 32), np.int32)
+assert eval_torch.eval_batch(z, z - 1, [0], device="cpu").tolist() == [0]
+assert bench_parity.run_one((seq, "", "a"), 8, 2, 16)[1][0][2] == res[0].str_struct
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "rafft_tpu"))
 assert not loaded, loaded
