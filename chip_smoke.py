@@ -1,6 +1,6 @@
 """Drive the PyTorch port on one NVIDIA card and check it end to end.
 
-    python3 chip_smoke.py [--full] [--only phase,...]
+    python3 chip_smoke.py [--full] [--k200-full [--k200-limit SECONDS]] [--only phase,...]
 
 Phases (each raises on failure; the script exits nonzero and prints no
 result line):
@@ -59,19 +59,21 @@ result line):
                 flagged rows carry the journal's flag bits; the kernel on
                 one real step of each bucket beside its bound, and the
                 same checks on one more fold of the flagged rows alone;
-  7b. k200    - run_stream at bucket_config(128, 200, 200, 1000), B=16 (3,200
-                beam rows), over the first 16 journal rows of <= 120 nt:
+  7b. k200    - run_stream at bucket_config(N, 200, 200, 1000), B =
+                bucket_batch(16, N), over the first 16 journal rows of <= 120
+                nt (N=128, B=16: 3,200 beam rows), the first 16 of the 256
+                bucket (B=16: 3,200 x 256), the first 8 of the 512 bucket
+                (B=8: 1,600 x 512) and the first 4 of the 1024 bucket (B=4):
                 flags printed by cause (a flagged fold is one the sweep
                 refolds on the CPU); an unflagged row's best structure and
                 energy equal the committed K=200 sweep
-                (sweep_200n200_tpu.ckpt.jsonl) or, where that row differs,
-                its whole beam equals the port's fold_cpu; then the first 4
-                rows of the 1024 bucket at its K=200 configuration, B=4,
-                against sweep_200n200_cpu.ckpt.jsonl in the same way (its
-                complex-candidate budget of 1,024 overflows at K=200, so
-                these rows come out flagged `cplx_budget`, as they did for
-                the JAX engine, whose K=200 sweep of the 512 and 1024
-                buckets ran on the CPU engine); peak memory of both;
+                (sweep_200n200_tpu.ckpt.jsonl up to 256,
+                sweep_200n200_cpu.ckpt.jsonl above: the JAX package's K=200
+                sweep of the 512 and 1024 buckets ran on its CPU engine) or,
+                where that row differs, its whole beam equals the port's
+                fold_cpu; seconds and peak memory of each bucket, and the
+                kernel on its 4th step against the plain version's seven
+                whole tables, beside its bound;
   7c. long    - run_stream at bucket_config(4096, 100, 50, 1000), B=1, on
                 the two 23S rRNAs of longtail.ckpt.jsonl (2,915 and 2,968
                 nt): a row carries a nonzero flag, printed by cause, or
@@ -175,9 +177,33 @@ result line):
                 mfe_records on the card, and over the two 23S rRNAs at
                 N=4096, B=1: every row equal to the native DP, run in a
                 process pool;
+ 11. k200-full - with --k200-full only (combine it with --only k200 to run it
+                without the rest of the default run): the whole committed
+                -n 200 -ms 200 corpus, the 2,294 rows of the two
+                sweep_200n200_*.ckpt.jsonl files and the 23S pair of
+                longtail_200n200.ckpt.jsonl (k200_plan).  Stage 1, on the
+                card: the 64, 128 and 256 buckets through sweep() as users
+                run it, its CPU refold of flagged rows included, each
+                result's (struct, nrj, nbp) against
+                sweep_200n200_tpu.ckpt.jsonl; the 512 and 1024 buckets and
+                the 23S pair through the sweep's engine path without the
+                refold (run_stream at bucket_config, B = bucket_batch(16,
+                N)); per bucket the rows, the flags by cause, the unflagged
+                rows equal to and differing from the committed row, seconds,
+                seq/s, peak and wavefront launches; the kernel on one real
+                step at 3,200 x 16 x 256, 1,600 x 16 x 512, 800 x 32 x 1024
+                and 200 x 32 x 4096 against the plain version's whole
+                tables.  Stage 2, on the host's cores under --k200-limit
+                seconds (default 3,600): fold_cpu in a forkserver pool,
+                smallest N first, refolds every row flagged in stage 1
+                outside sweep() (it must give the committed struct and nrj)
+                and every unflagged row that differs (its whole beam must
+                equal fold_cpu's); rows the limit cuts off are printed as
+                unchecked with their indices, no failure and never counted
+                as equal.  Prints `k200_full: {...}`, the record per bucket;
 The default run's earlier phases are uncut; what was cut to keep it short
 is in the later ones: one seeded layout and one timed call of the plain
-version at N=2048 and 4096, 16 and 4 rows in the k200 phase, one pass
+version at N=2048 and 4096, 16, 16, 8 and 4 rows in the k200 phase, one pass
 over each long fold, the first rows of each MFE bucket (all of them with
 --full), and the MFE profiles to a batch's first 128 diagonals (a
 diagonal issues the same ops at every d >= 8).
@@ -702,23 +728,44 @@ def _fold_once(eng, seqs):
             step_args)
 
 
-def _ckpt_rows(name):
+def _ckpt_list(name):
     with open(os.path.join(ARTIFACTS, name)) as fh:
-        return {(r["name"], r["seq"]): r for r in map(json.loads, fh)}
+        return [json.loads(line) for line in fh]
 
 
-def _k200_row(beam, committed, what):
+def _ckpt_rows(name):
+    return {(r["name"], r["seq"]): r for r in _ckpt_list(name)}
+
+
+# the committed -n 200 -ms 200 corpus: each checkpoint file and the
+# buckets its sweep folded (the JAX engine's up to 256, its CPU engine's
+# 512 and 1024, tools/fold_longtail.py's CPU folds of the 23S pair)
+K200_TPU = "sweep_200n200_tpu.ckpt.jsonl"
+K200_CPU = "sweep_200n200_cpu.ckpt.jsonl"
+K200_LONG = "longtail_200n200.ckpt.jsonl"
+K200_FILES = ((K200_TPU, (64, 128, 256)), (K200_CPU, (512, 1024)),
+              (K200_LONG, (4096,)))
+# the buckets --k200-full folds through sweep() itself, refold included
+K200_SWEPT = (64, 128, 256)
+# phase k200: (bucket, journal rows folded, committed sweep)
+K200_ROWS = ((128, 16, K200_TPU), (256, 16, K200_TPU), (512, 8, K200_CPU),
+             (1024, 4, K200_CPU))
+
+
+def _k200_row(beam, committed, what, cpu_beam=None):
     """The rule for a fold at -n 200 -ms 200: its best row equals the
     committed sweep's row (struct, nrj) or, where it does not, its whole
     beam equals fold_cpu's (the committed sweeps hold rows that are
-    artifacts of the run that wrote them).  Returns whether fold_cpu's
-    beam was the one that held; raises where neither does."""
+    artifacts of the run that wrote them).  cpu_beam is fold_cpu's beam
+    where it was folded already.  Returns whether fold_cpu's beam was
+    the one that held; raises where neither does."""
     beam = [tuple(b) for b in beam]
     if beam[0] == (committed["struct"], committed["nrj"]):
         return False
-    cpu = fold_cpu.fold(committed["seq"], nb_mode=200, max_stack=200,
-                        max_branch=1000)
-    if beam != [(x.str_struct, x.energy) for x in cpu]:
+    if cpu_beam is None:
+        cpu_beam = [(x.str_struct, x.energy) for x in fold_cpu.fold(
+            committed["seq"], nb_mode=200, max_stack=200, max_branch=1000)]
+    if beam != [tuple(b) for b in cpu_beam]:
         raise AssertionError(f"{what} differs from the committed sweep and "
                              f"from fold_cpu")
     return True
@@ -726,10 +773,11 @@ def _k200_row(beam, committed, what):
 
 @phase
 def phase_k200(rows_all):
-    """-n 200 -ms 200 at full width: 3,200 beam rows at the 128 bucket."""
+    """-n 200 -ms 200 at full width: 3,200 beam rows at the 128 and 256
+    buckets, 1,600 at 512, 800 at 1024."""
     launches, steps = {}, []
-    for N, count, ckpt in ((128, 16, "sweep_200n200_tpu.ckpt.jsonl"),
-                           (1024, 4, "sweep_200n200_cpu.ckpt.jsonl")):
+    for N, count, ckpt in K200_ROWS:
+        t_bucket = time.perf_counter()
         rows = ([r for r in rows_all if len(r["seq"]) <= 120] if N == 128
                 else bucket_rows(rows_all, N, count))[:count]
         want = _ckpt_rows(ckpt)
@@ -766,6 +814,8 @@ def phase_k200(rows_all):
                                       real_step=True))
         del eng, got, step_args
         torch.cuda.empty_cache()
+        log(f"[k200] N={N}: {time.perf_counter() - t_bucket:.2f} s for the "
+            f"bucket (fold, checks and the kernel's comparison)")
     return launches, steps
 
 
@@ -1505,25 +1555,32 @@ def phase_tools(rows_all):
     return launches, steps
 
 
+def _bucket_marks():
+    """A sweep() progress callback that keeps, per bucket, the end of its
+    stream, its end, and the peak and wavefront launches since the last
+    bucket ended (both set to 0 there)."""
+    marks, start = {}, [time.perf_counter()]
+
+    def progress(N, done_n, total, done=False, secs=None):
+        now = time.perf_counter()
+        m = marks.setdefault(N, {})
+        if not done:
+            m["stream_end"] = now
+            return
+        m.update(end=now, start=start[0],
+                 peak=torch.cuda.max_memory_allocated(), launches=WT.LAUNCHES)
+        start[0] = now
+        torch.cuda.reset_peak_memory_stats()
+        WT.LAUNCHES = 0
+
+    return marks, progress
+
+
 @phase
 def phase_full(rows_all, refs):
     """sweep() over the whole journal, flagged folds refolded on the CPU."""
     records = [(r["seq"], "." * len(r["seq"]), r["name"]) for r in rows_all]
-    marks = {}
-    t_start = [time.perf_counter()]
-
-    def progress(N, done_n, total, done=False, secs=None):
-        now = time.perf_counter()
-        if not done:
-            marks.setdefault(N, {})["stream_end"] = now
-            return
-        m = marks.setdefault(N, {})
-        m.update(end=now, start=t_start[0], peak=torch.cuda.max_memory_allocated(),
-                 launches=WT.LAUNCHES)
-        t_start[0] = now
-        torch.cuda.reset_peak_memory_stats()
-        WT.LAUNCHES = 0
-
+    marks, progress = _bucket_marks()
     build = os.path.join(ROOT, "build")
     os.makedirs(build, exist_ok=True)
     stats = {}
@@ -1627,17 +1684,271 @@ def phase_full_mfe(rows_all):
             f"{pool_secs:.3f} s")
 
 
+def k200_plan():
+    """The committed -n 200 -ms 200 corpus by bucket: {N: [committed row,
+    ...]} in `_idx` order, each row tagged with its file (`_file`): the
+    rows of every K200_FILES file in the bucket its sweep folded them at.
+    Raises where a row's length or `_bucket` puts it in another bucket,
+    or where a (name, seq) comes twice."""
+    plan, seen = {}, set()
+    for name, buckets in K200_FILES:
+        for r in _ckpt_list(name):
+            key, N = (r["name"], r["seq"]), r["_bucket"]
+            if key in seen:
+                raise AssertionError(f"{name}: {r['name']} comes twice")
+            if N not in buckets or TS.bucket_of(len(r["seq"]),
+                                                K200_BUCKETS) != N:
+                raise AssertionError(f"{name}: {r['name']} "
+                                     f"({len(r['seq'])} nt) in bucket {N}")
+            seen.add(key)
+            plan.setdefault(N, []).append(dict(r, _file=name))
+    for rows in plan.values():
+        rows.sort(key=lambda r: r["_idx"])
+    return dict(sorted(plan.items()))
+
+
+def _refold_timed(task):
+    """Pool worker of --k200-full's stage 2: the sweep's refold of one
+    row (fold_cpu, native evaluator) and its seconds."""
+    t0 = time.perf_counter()
+    return (*TS._cpu_refold(task), time.perf_counter() - t0)
+
+
+def _k200_swept(plan, report, tasks):
+    """Stage 1, the 64, 128 and 256 buckets: sweep() as users run it, its
+    CPU refold included; each result against sweep_200n200_tpu.ckpt.jsonl.
+    An unflagged row that differs goes to stage 2 (`tasks`)."""
+    rows = [r for N in K200_SWEPT for r in plan[N]]
+    records = [(r["seq"], "." * len(r["seq"]), r["name"]) for r in rows]
+    marks, progress = _bucket_marks()
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    stats = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = os.path.join(tmp, "beams.jsonl")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        WT.LAUNCHES = 0
+        res = sweep(records, nb_mode=200, max_stack=200, max_branch=1000,
+                    buckets=K200_BUCKETS, save_beams=path, stats=stats,
+                    progress=progress, device="cuda")
+        saved = {(b["name"], b["seq"]): b for b in _beam_rows(path)}
+    if stats.get("n_fallback") and stats.get("refold_evaluator") != "native":
+        raise AssertionError("the sweep's refold did not run the native "
+                             "evaluator")
+    out = dict(zip(((r["name"], r["seq"]) for r in rows), res))
+    for N in K200_SWEPT:
+        m, rec = marks[N], report[N]
+        causes, equal, ref_equal, ref_cpu = {}, 0, 0, 0
+        for r in plan[N]:
+            key = (r["name"], r["seq"])
+            got, b = out[key], saved[key]
+            if (got["struct"], got["nrj"]) != tuple(b["beam"][0]):
+                raise AssertionError(f"{r['name']}: result and saved beam "
+                                     f"differ")
+            same = ((got["struct"], got["nrj"], got["nbp"])
+                    == (r["struct"], r["nrj"], r["nbp"]))
+            if b["flagged"]:
+                name = FT.flag_names(b["flagged"])
+                causes[name] = causes.get(name, 0) + 1
+                # refolded by the sweep: fold_cpu's own beam
+                ref_equal += same
+                ref_cpu += not same
+            elif same:
+                equal += 1
+            else:
+                tasks.append(dict(N=N, kind="differs", row=r,
+                                  beam=[tuple(x) for x in b["beam"]]))
+        stream = m["stream_end"] - m["start"]
+        rec.update(rows=len(plan[N]), batch=bucket_batch(16, N),
+                   flags=causes, unflagged_equal=equal,
+                   unflagged_differ=len(plan[N]) - sum(causes.values()) - equal,
+                   refolded_in_sweep_equal=ref_equal,
+                   refolded_in_sweep_fold_cpu=ref_cpu,
+                   card_s=stream, seq_per_s=len(plan[N]) / stream,
+                   refold_s=m["end"] - m["stream_end"],
+                   seq_per_s_with_refold=len(plan[N]) / (m["end"] - m["start"]),
+                   peak_mib=m["peak"] / 2**20, launches=m["launches"])
+        if m["launches"] == 0:
+            raise AssertionError(f"bucket {N} never launched the kernel")
+        log(f"[k200-full] N={N} sweep() B={rec['batch']}: {rec['rows']} rows; "
+            f"flagged {causes} (refolded by the sweep: {ref_equal} equal the "
+            f"committed row, {ref_cpu} give fold_cpu's other beam); "
+            f"unflagged {equal} equal {K200_TPU}, {rec['unflagged_differ']} "
+            f"differ (to stage 2); {stream:.3f} s on the card "
+            f"({rec['seq_per_s']:.3f} seq/s), refold and write "
+            f"{rec['refold_s']:.3f} s ({rec['seq_per_s_with_refold']:.3f} "
+            f"seq/s in all); peak {rec['peak_mib']:.1f} MiB; wavefront "
+            f"launches {rec['launches']}")
+
+
+def _k200_engine(N, rows, report, tasks):
+    """Stage 1, the 512 and 1024 buckets and the 23S pair: the sweep's
+    engine path without the refold.  Returns the launches and the 4th
+    step's kernel arguments."""
+    rec = report[N]
+    eng = FoldEngine(bucket_config(N, 200, 200, 1000), B=bucket_batch(16, N),
+                     device="cuda")
+    got, secs, peak, n_launch, step_args = _fold_once(
+        eng, [r["seq"] for r in rows])
+    causes, equal = {}, 0
+    for i, r in enumerate(rows):
+        beam, flag = got[i]
+        if flag:
+            name = FT.flag_names(flag)
+            causes[name] = causes.get(name, 0) + 1
+            tasks.append(dict(N=N, kind="flagged", row=r))
+        elif beam[0] == (r["struct"], r["nrj"]):
+            equal += 1
+        else:
+            tasks.append(dict(N=N, kind="differs", row=r,
+                              beam=[tuple(x) for x in beam]))
+    rec.update(rows=len(rows), batch=eng.B, flags=causes,
+               unflagged_equal=equal,
+               unflagged_differ=len(rows) - sum(causes.values()) - equal,
+               card_s=secs, seq_per_s=len(rows) / secs,
+               peak_mib=peak / 2**20, launches=n_launch)
+    log(f"[k200-full] N={N} run_stream B={eng.B}: {len(rows)} rows; flagged "
+        f"{causes} (to stage 2); unflagged {equal} equal "
+        f"{rows[0]['_file']}, {rec['unflagged_differ']} differ (to stage 2); "
+        f"{secs:.3f} s on the card ({rec['seq_per_s']:.4f} seq/s, the layout "
+        f"check inside); peak {rec['peak_mib']:.1f} MiB; wavefront launches "
+        f"{n_launch}")
+    del eng, got
+    torch.cuda.empty_cache()
+    return n_launch, step_args
+
+
+def _k200_refold(tasks, limit, report):
+    """Stage 2: fold_cpu on the host's cores, smallest N first, until
+    `limit` seconds have passed; the pool is ended then.  A flagged row
+    must give the committed (struct, nrj), an unflagged row that differs
+    fold_cpu's whole beam.  Raises after printing every bucket where a
+    row gives neither."""
+    tasks = sorted(tasks, key=lambda t: (t["N"], t["row"]["_idx"]))
+    width = max(1, min(os.cpu_count() or 1, len(tasks)))
+    done = {}
+    t0 = time.perf_counter()
+    if tasks:
+        pool = multiprocessing.get_context("forkserver").Pool(width)
+        try:
+            it = pool.imap_unordered(_refold_timed, [
+                (k, t["row"]["seq"], 200, 200, 1000)
+                for k, t in enumerate(tasks)])
+            for _ in tasks:
+                left = t0 + limit - time.perf_counter()
+                if left <= 0:
+                    break
+                try:
+                    k, beam, evaluator, secs = it.next(timeout=left)
+                except multiprocessing.TimeoutError:
+                    break
+                done[k] = (beam, evaluator, secs)
+        finally:
+            pool.terminate()
+            pool.join()
+    wall = time.perf_counter() - t0
+    failed = []
+    for N, rec in report.items():
+        mine = [(k, t) for k, t in enumerate(tasks) if t["N"] == N]
+        res = dict(flagged_equal=0, differ_equal_fold_cpu=0, unchecked=[],
+                   wrong=[], refold_s=[])
+        for k, t in mine:
+            r = t["row"]
+            if k not in done:
+                res["unchecked"].append(r["_idx"])
+                continue
+            beam, evaluator, secs = done[k]
+            res["refold_s"].append(secs)
+            if evaluator != "native":
+                raise AssertionError("the refold did not run the native "
+                                     "evaluator")
+            if t["kind"] == "flagged":
+                ok = tuple(beam[0]) == (r["struct"], r["nrj"])
+                res["flagged_equal"] += ok
+            else:
+                try:
+                    ok = _k200_row(t["beam"], r, f"N={N} _idx {r['_idx']}",
+                                   cpu_beam=beam)
+                except AssertionError:
+                    ok = False
+                res["differ_equal_fold_cpu"] += ok
+            if not ok:
+                res["wrong"].append((r["_idx"], t["kind"]))
+        secs = res.pop("refold_s")
+        rec.update(res, refolded=len(secs),
+                   refold_row_s_mean=float(np.mean(secs)) if secs else None,
+                   refold_row_s_max=max(secs) if secs else None)
+        failed += res["wrong"]
+        if mine:
+            log(f"[k200-full] stage 2 N={N}: {len(mine)} rows; "
+                f"{res['flagged_equal']} flagged rows refolded equal the "
+                f"committed row, {res['differ_equal_fold_cpu']} differing rows "
+                f"equal fold_cpu's whole beam; wrong (_idx, kind) "
+                f"{res['wrong']}; unchecked under the limit: "
+                f"{len(res['unchecked'])}, _idx {res['unchecked']}; seconds "
+                f"a refolded row mean {rec['refold_row_s_mean']}, max "
+                f"{rec['refold_row_s_max']}")
+    log(f"[k200-full] stage 2: {len(done)}/{len(tasks)} rows refolded in "
+        f"{wall:.1f} s by a pool of {width} processes (limit {limit:.0f} s)")
+    if failed:
+        raise AssertionError(f"rows (_idx, kind) {failed} differ from the "
+                             f"committed sweep and from fold_cpu")
+    return width, wall
+
+
+@phase
+def phase_k200_full(limit):
+    """The whole committed -n 200 -ms 200 corpus: stage 1 on the card,
+    stage 2 on the host's cores under `limit` seconds."""
+    plan = k200_plan()
+    report = {N: {} for N in plan}
+    tasks, launches, steps = [], {}, []
+    t0 = time.perf_counter()
+    _k200_swept(plan, report, tasks)
+    for N in K200_SWEPT:
+        launches[N] = report[N]["launches"]
+    # a real step of the 256 bucket, held to the plain version
+    eng = FoldEngine(bucket_config(256, 200, 200, 1000),
+                     B=bucket_batch(16, 256), device="cuda")
+    args = capture_kernel_call(eng, [r["seq"] for r in plan[256][:eng.B]],
+                               every=WT.check_layout)
+    steps.append(_kernel_vs_bound("k200-full step", args, 256,
+                                  real_step=True))
+    del eng, args
+    for N in (512, 1024, 4096):
+        launches[N], args = _k200_engine(N, plan[N], report, tasks)
+        steps.append(_kernel_vs_bound("k200-full step", args, N,
+                                      reps=50 if N == 4096 else 200,
+                                      real_step=True))
+        del args
+        torch.cuda.empty_cache()
+    card = time.perf_counter() - t0
+    log(f"[k200-full] stage 1: {sum(len(r) for r in plan.values())} rows in "
+        f"{card:.1f} s; {len(tasks)} rows to stage 2")
+    width, wall = _k200_refold(tasks, limit, report)
+    log("k200_full: " + json.dumps(dict(
+        stage1_s=card, stage2_s=wall, pool=width, limit_s=limit,
+        buckets={str(N): rec for N, rec in report.items()})))
+    return launches, steps
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--full", action="store_true",
                     help="also sweep all 2,294 journal rows and the two 23S "
                          "rRNAs (several minutes)")
+    ap.add_argument("--k200-full", dest="k200_full", action="store_true",
+                    help="also fold the whole committed -n 200 -ms 200 corpus "
+                         "(stage 1 on the card, stage 2 on the host's cores)")
+    ap.add_argument("--k200-limit", dest="k200_limit", type=float,
+                    default=3600.0, help="seconds for --k200-full's stage 2 "
+                                         "(default 3600)")
     ap.add_argument("--only", help="comma-separated phases to run after "
                     "device and build (kernel, fold_one, oracle, weights, "
                     "headline, loops, buckets, k200, long, sweep, cli, mfe, "
-                    "api, multi, bench, tools): a "
-                    "partial run for finding faults, which prints no result "
-                    "line")
+                    "api, multi, bench, tools), then --full and --k200-full "
+                    "where given: a partial run, which prints no result line")
     args = ap.parse_args(argv)
     smi = phase_device()
     with open(REFS) as fh:
@@ -1672,14 +1983,16 @@ def main(argv=None):
     only = args.only.split(",") if args.only else list(phases)
     for name in only:
         phases[name]()
-    if args.only:
-        log(f"[partial] ran {only}: wavefront launches {launches}; no result "
-            f"line")
-        return
     if args.full:
         phase_full(rows, refs)
         phase_full_long()
         phase_full_mfe(rows)
+    if args.k200_full:
+        counted("k200full_", phase_k200_full(args.k200_limit))
+    if args.only:
+        log(f"[partial] ran {only}: wavefront launches {launches}; no result "
+            f"line")
+        return
     kern["shapes"] += steps
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "rafft_tpu"))

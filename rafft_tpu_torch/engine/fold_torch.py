@@ -1021,16 +1021,23 @@ class FoldEngine:
         return rows
 
     # ---------------- host API
-    def run(self, seqs, collect_traj=False):
+    def run(self, seqs, collect_traj=False, structures=False):
+        """Fold `seqs` (at most B) to their fixed points.  Returns the
+        final beams (one per sequence), the trajectory (the beam before
+        every step) with collect_traj=True, and the last state.  A beam
+        is [(dot_bracket, energy_kcal)] best-first, or with
+        structures=True a list of Structure whose pair_list and
+        node_list are filled (_structures)."""
+        read = self._structures if structures else self._beams
         state = self.init_state(seqs)
         traj = []
         for _ in range(self.cfg.max_steps):
             if bool(state["done"].all()):
                 break
             if collect_traj:
-                traj.append(self._beams(state, len(seqs)))
+                traj.append(read(state, len(seqs)))
             state = self.step(state)
-        beams = self._beams(state, len(seqs))
+        beams = read(state, len(seqs))
         if collect_traj:
             return beams, traj, state
         return beams, state
@@ -1039,6 +1046,41 @@ class FoldEngine:
         pt, E, act, n = (state[k].cpu().numpy()
                          for k in ("pt", "energy", "active", "n"))
         return [self._rows_from(pt[b], E[b], act[b], n[b]) for b in range(nseq)]
+
+    def _structures(self, state, nseq):
+        """The beams as fold_cpu's Structure objects, one host read per
+        call:
+
+        - pair_list: the row's pairs as (i, j) tuples with i < j, sorted
+          by i (fold_cpu appends them stem by stem; the pair set is what
+          its consumers read, struct.merge_pair_list);
+        - node_list: the open regions in the row's region order (rorder,
+          fold_cpu's node_list order), each its unpaired member
+          positions ascending as an int64 array;
+        - energy and str_struct as in _beams."""
+        cfg, B = self.cfg, self.B
+        K, N = cfg.K, cfg.N
+        pt, n, rorder = state["pt"], state["n"], state["rorder"]
+        loops = analyze_pt(self.dp, state["codes"][:, None].expand(B, K, N),
+                           pt, n[:, None].expand(B, K))
+        rpos, _, _, mlen = _regions(cfg, pt, loops["enclose"], rorder, n)
+        pt, E, act, n, ror, rpos, mlen = (
+            x.cpu().numpy() for x in (pt, state["energy"], state["active"], n,
+                                      rorder, rpos, mlen))
+        out = []
+        for b in range(nseq):
+            beam = []
+            for k in np.flatnonzero(act[b]):
+                row = pt[b, k, : n[b]]
+                ii = np.flatnonzero(row > np.arange(n[b]))
+                pairs = [(int(i), int(row[i])) for i in ii]
+                nodes = [rpos[b, k, r, : mlen[b, k, r]].astype(np.int64)
+                         for r in np.flatnonzero(ror[b, k] > -2)]
+                beam.append(Structure(nodes, pairs,
+                                      float(np.float32(int(E[b, k]) / 100.0)),
+                                      dot_bracket(pairs, int(n[b]))))
+            out.append(beam)
+        return out
 
 
 def fold_one_config(n, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
@@ -1056,17 +1098,23 @@ def fold_one_config(n, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
 
 
 def _fold_one(sequence, nb_mode, max_stack, max_branch, min_hp, min_nrj,
-              traj, temp, gc_wei, au_wei, gu_wei, device):
-    """fold_one's results and the fold's FLAG_* bitmask."""
+              traj, temp, gc_wei, au_wei, gu_wei, device, structures=False):
+    """fold_one's results and the fold's FLAG_* bitmask; with
+    structures=True the Structure objects carry pair_list and node_list
+    (FoldEngine._structures, what the root fold returns)."""
     cfg = fold_one_config(len(sequence), nb_mode, max_stack, max_branch,
                           min_hp, min_nrj, temp, gc_wei, au_wei, gu_wei)
     eng = FoldEngine(cfg, B=1, device=device)
-    mk = lambda rows: [Structure([], [], e, db) for db, e in rows]
+    if structures:
+        mk = lambda beam: beam
+    else:
+        mk = lambda rows: [Structure([], [], e, db) for db, e in rows]
     if traj:
-        beams, steps, state = eng.run([sequence], collect_traj=True)
+        beams, steps, state = eng.run([sequence], collect_traj=True,
+                                      structures=structures)
         out = (mk(beams[0]), [mk(s[0]) for s in steps])
     else:
-        beams, state = eng.run([sequence])
+        beams, state = eng.run([sequence], structures=structures)
         out = mk(beams[0])
     return out, int(eng.flags(state)[0])
 
@@ -1086,8 +1134,22 @@ def flag_names(flag: int) -> str:
     return "+".join(c for b, c in FLAG_NAMES.items() if flag & b) or "none"
 
 
+def fold_refusal(sequence, nb_mode, max_stack, cfg: EngineConfig) -> str | None:
+    """Why the root fold sends a call to fold_cpu before building an
+    engine, or None: the degenerate inputs (an empty sequence, no beam
+    slot, no lag searched), whose answers fold_cpu gives and an engine
+    cannot make, then what FoldEngine refuses (engine_refusal)."""
+    if not sequence:
+        return "the sequence is empty"
+    if max_stack < 1:
+        return f"max_stack={max_stack} leaves no beam slot"
+    if nb_mode < 1:
+        return f"nb_mode={nb_mode} searches no lag"
+    return engine_refusal(cfg)
+
+
 # fold() calls answered by fold_cpu: folds the engine flagged, and inputs
-# the engine refuses
+# the engine refuses or no engine is built for
 REFOLDS = 0
 
 
@@ -1095,29 +1157,41 @@ def fold(sequence, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
          min_nrj=0.0, traj=False, temp=37.0, gc_wei=3.0, au_wei=2.0,
          gu_wei=1.0, *, device="cuda"):
     """The package's `fold`: rafft_tpu.fold's signature and results, the
-    final beam (and the trajectory with traj=True), plus the device.
+    final beam (and the trajectory with traj=True, the beam before every
+    step, the last one included), plus the device.
 
     Folds on the batched engine at fold_one's configuration, except where
     the sequential CPU parity engine (fold_cpu, what rafft_tpu.fold runs)
     must answer instead:
 
-    - inputs the engine refuses (engine_refusal): max_stack > 255 (the
-      pool's tie order), min_hp < 0 (the wavefront tables' padding) and
-      sequences over 4,096 nt (MAX_N, the largest bucket); no engine is
-      built for them;
+    - inputs no engine is built for (fold_refusal): an empty sequence,
+      max_stack < 1 and nb_mode < 1, then what the engine refuses
+      (engine_refusal): max_stack > 255 (the pool's tie order), min_hp < 0
+      (the wavefront tables' padding) and sequences over 4,096 nt (MAX_N,
+      the largest bucket);
     - folds the engine flags as possibly inexact (a FLAG_* bit), as
       sweep() refolds them.
 
     Either is logged at INFO with its reason and counted in REFOLDS.  So
-    the result equals rafft_tpu.fold's on every input."""
+    the result equals rafft_tpu.fold's on every input.  Each Structure
+    holds, as fold_cpu's do:
+
+    - str_struct: the dot-bracket string;
+    - energy: the Turner energy in kcal/mol, a float32 value;
+    - pair_list: the base pairs as (i, j) tuples, i < j; from the engine
+      sorted by i, from fold_cpu in the order its stems formed (the same
+      set);
+    - node_list: the regions still open for helix formation, in
+      fold_cpu's order, each an int64 array of its unpaired positions
+      ascending."""
     global REFOLDS
     args = (nb_mode, max_stack, max_branch, min_hp, min_nrj, traj, temp,
             gc_wei, au_wei, gu_wei)
-    reason = engine_refusal(fold_one_config(
+    reason = fold_refusal(sequence, nb_mode, max_stack, fold_one_config(
         len(sequence), nb_mode, max_stack, max_branch, min_hp, min_nrj, temp,
         gc_wei, au_wei, gu_wei))
     if reason is None:
-        out, flag = _fold_one(sequence, *args, device)
+        out, flag = _fold_one(sequence, *args, device, structures=True)
         if not flag:
             return out
         reason = f"the engine flagged the fold ({flag_names(flag)})"

@@ -2,6 +2,7 @@
 
     python -m rafft_tpu_torch.tools.measure [--phases loops,headline,syncs,profile,kernel,walk,mfe]
                                             [--passes 5] [--out DIR]
+                                            [--max-stack 50] [--profile-buckets 256,512,1024]
 
 Run it from the root of a checkout: it measures the rafft_tpu_torch
 package that the checkout holds.  To compare two versions in one call,
@@ -22,8 +23,13 @@ Phases (each prints lines tagged with its name):
              reads per step (Tensor.__bool__, __int__ and item on CUDA
              tensors), steps (= wavefront launches) and the share of the
              wall spent in FoldEngine._rows_from;
-  profile  - per bucket 256/512/1024, torch.profiler over run_stream
-             after a warm-up, with a range around each stage of the step.
+  profile  - per bucket (--profile-buckets, default 256/512/1024, at
+             --max-stack K, default 50, the sweep's configuration),
+             torch.profiler over run_stream after a warm-up, with a range
+             around each stage of the step.  Before it, one unprofiled fold
+             with every stage wrapped gives the fold's peak, the state's
+             bytes and each stage's largest rise of the peak over what was
+             allocated at its entry.
              From the Chrome trace: device ops per step, kernel ms, and
              per stage the kernel ms of the ops launched inside its range
              (nested stages count in both) and its host ms.  Busy share is
@@ -539,7 +545,50 @@ def phase_syncs(rows_all):
             f"({100 * counts['rows_from'] / secs:.2f}% of wall)")
 
 
-PROFILE_ROWS = {256: 16, 512: 8, 1024: 4}
+PROFILE_ROWS = {128: 16, 256: 16, 512: 8, 1024: 4}
+
+
+def _stage_peaks(eng, rows):
+    """One more fold of `rows` with every stage wrapped: per stage the
+    largest rise of the allocator's peak over what was allocated when it
+    was entered (nested stages count in both), and the fold's peak and
+    the state's bytes.  Allocation follows the host's enqueueing, so no
+    synchronisation is needed."""
+    from rafft_tpu_torch.engine import fold_torch as FT
+    orig = {name: getattr(FT, name) for name in STAGES}
+    rise = {}
+    # per open stage (the fold at the bottom): the largest peak seen in it
+    # before the allocator's counter was last reset
+    frames = [0]
+
+    def peaked(name, fn):
+        def wrapped(*a, **kw):
+            base = torch.cuda.memory_allocated()
+            frames[-1] = max(frames[-1], torch.cuda.max_memory_allocated())
+            frames.append(0)
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                return fn(*a, **kw)
+            finally:
+                own = max(frames.pop(), torch.cuda.max_memory_allocated())
+                rise[name] = max(rise.get(name, 0), own - base)
+                frames[-1] = max(frames[-1], own)
+                torch.cuda.reset_peak_memory_stats()
+        return wrapped
+
+    state = eng.init_state([r["seq"] for r in rows[: eng.B]])
+    state_bytes = sum(v.numel() * v.element_size() for v in state.values())
+    del state
+    for name, fn in orig.items():
+        setattr(FT, name, peaked(name, fn))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        _fold(eng, rows)
+    finally:
+        for name, fn in orig.items():
+            setattr(FT, name, fn)
+    return rise, max(frames[0], torch.cuda.max_memory_allocated()), state_bytes
 
 
 def _trace_stats(path):
@@ -570,7 +619,7 @@ def _trace_stats(path):
     return k_dur.sum() / 1e3, len(kern), stages
 
 
-def phase_profile(rows_all, out_dir):
+def phase_profile(rows_all, out_dir, K=K_BEAM, buckets=(256, 512, 1024)):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from rafft_tpu_torch.engine import fold_torch as FT
@@ -583,11 +632,12 @@ def phase_profile(rows_all, out_dir):
                 return fn(*a, **kw)
         return wrapped
 
-    for N, count in PROFILE_ROWS.items():
-        rows = bucket_rows(rows_all, N, count)
-        eng = _engine(N)
+    for N in buckets:
+        rows = bucket_rows(rows_all, N, PROFILE_ROWS[N])
+        eng = _engine(N, K)
         _fold(eng, rows[: eng.B])
         wall = _fold(eng, rows)
+        rise, peak, state_bytes = _stage_peaks(eng, rows)
         WT.LAUNCHES = 0
         for name, fn in orig.items():
             setattr(FT, name, ranged(name, fn))
@@ -609,15 +659,18 @@ def phase_profile(rows_all, out_dir):
             with open(os.path.join(out_dir, f"profile_{N}.txt"), "w") as fh:
                 fh.write(prof.key_averages().table(
                     sort_by="cuda_time_total", row_limit=60))
-        log(f"[profile] N={N}: {len(rows)} seqs, {steps} steps; unprofiled "
-            f"wall {wall:.3f} s, profiled wall {pwall:.3f} s; kernel "
-            f"{kms:.1f} ms; {nops} device ops ({nops / steps:.0f}/step); busy "
-            f"share {100 * kms / 1e3 / pwall:.1f}% of the profiled wall, "
-            f"{100 * kms / 1e3 / wall:.1f}% of the unprofiled wall")
+        log(f"[profile] N={N} K={K} B={eng.B}: {len(rows)} seqs, {steps} "
+            f"steps; unprofiled wall {wall:.3f} s, profiled wall {pwall:.3f} "
+            f"s; kernel {kms:.1f} ms; {nops} device ops ({nops / steps:.0f}"
+            f"/step); busy share {100 * kms / 1e3 / pwall:.1f}% of the "
+            f"profiled wall, {100 * kms / 1e3 / wall:.1f}% of the unprofiled "
+            f"wall; peak {peak / MiB:.1f} MiB, the state {state_bytes / MiB:.1f}"
+            f" MiB")
         for name, (dms, hms, calls) in sorted(stages.items(),
                                               key=lambda kv: -kv[1][0]):
             log(f"[profile] N={N} {name}: kernel {dms:.1f} ms, host "
-                f"{hms:.1f} ms, {calls} calls")
+                f"{hms:.1f} ms, {calls} calls; peak rise "
+                f"{rise.get(name, 0) / MiB:.1f} MiB")
 
 
 def _abba(rounds):
@@ -821,6 +874,12 @@ def main(argv=None):
     ap.add_argument("--passes", type=int, default=5)
     ap.add_argument("--out", help="directory for the profiler tables")
     ap.add_argument("--against", help="another checkout, for the swap phase")
+    ap.add_argument("--max-stack", dest="max_stack", type=int, default=K_BEAM,
+                    help="the profile phase's beam width K (default 50; 200 "
+                         "for the -n 200 -ms 200 configuration)")
+    ap.add_argument("--profile-buckets", dest="profile_buckets",
+                    default="256,512,1024",
+                    help="the profile phase's buckets, of 128/256/512/1024")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure: no CUDA device")
@@ -838,7 +897,8 @@ def main(argv=None):
         elif ph == "syncs":
             phase_syncs(rows)
         elif ph == "profile":
-            phase_profile(rows, args.out)
+            phase_profile(rows, args.out, args.max_stack,
+                          [int(b) for b in args.profile_buckets.split(",")])
         elif ph == "kernel":
             phase_kernel(rows, args.passes)
         elif ph == "walk":

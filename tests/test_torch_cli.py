@@ -67,6 +67,24 @@ def test_cli_engines_and_weights_match_reference(flags, port_flags, capsys):
         assert "Full Tree" in got
 
 
+@pytest.mark.parametrize("traj", [[], ["--traj"]], ids=["final", "traj"])
+@pytest.mark.parametrize("case", ["empty_s", "header_only_fasta", "n_0"])
+def test_cli_degenerate_inputs_match_reference(case, traj, tmp_path, capsys):
+    """-s "", a FASTA file with only a header and -n 0: the default
+    engine's stdout equals the reference CLI's (the root fold sends each
+    to the CPU parity engine)."""
+    fasta = tmp_path / "header_only.fa"
+    fasta.write_text(">only a header\n")
+    flags = {"empty_s": ["-s", ""], "header_only_fasta": ["-sf", str(fasta)],
+             "n_0": ["-s", README_SEQ[:30], "-n", "0"]}[case] + traj
+    JCLI.main(flags)
+    want = capsys.readouterr().out
+    before = FT.REFOLDS
+    TCLI.main(["--device", "cpu", *flags])
+    assert capsys.readouterr().out == want
+    assert FT.REFOLDS == before + 1
+
+
 def test_cli_engine_choices():
     args = TCLI.parse_arguments(["-s", "ACGU"])
     assert args.engine == "torch" and not args.nono

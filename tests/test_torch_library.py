@@ -146,6 +146,68 @@ def test_root_fold_equals_rafft_tpu(k):
         assert _rows(got) == _rows(want)
 
 
+def _lists(structs):
+    """Each structure's pair set and its node_list as a list of tuples."""
+    return [(set(s.pair_list), [tuple(int(x) for x in a) for a in s.node_list])
+            for s in structs]
+
+
+@pytest.mark.parametrize("k", range(len(FOLD_ARGS)))
+def test_root_fold_fills_pair_and_node_lists(k):
+    """The root fold's structures from the engine carry rafft_tpu.fold's
+    pair set, and its node_list in order, in the final beam and in every
+    trajectory step; fold_one keeps both empty, as fold_jax.fold_one."""
+    seq, nb, ms, mb = FOLD_ARGS[k]
+    before = FT.REFOLDS
+    got, got_traj = rafft_tpu_torch.fold(seq, nb, ms, mb, traj=True,
+                                         device="cpu")
+    assert FT.REFOLDS == before           # the engine answered
+    want, want_traj = rafft_tpu.fold(seq, nb, ms, mb, traj=True)
+    assert _lists(got) == _lists(want)
+    assert [_lists(s) for s in got_traj] == [_lists(s) for s in want_traj]
+    for s in got:
+        assert s.pair_list == sorted(s.pair_list)
+        assert all(i < j for i, j in s.pair_list)
+        assert all(a.dtype == np.int64 for a in s.node_list)
+    assert any(s.pair_list for s in got) and any(s.node_list for s in got)
+    for s in FT.fold_one(seq, nb, ms, mb, device="cpu"):
+        assert s.pair_list == [] and s.node_list == []
+
+
+SEQ30 = "GGGGAAAACCCCUUUUGGGGAAAACCCCAA"
+DEGENERATE = [("", {}), (SEQ30, dict(max_stack=0)), (SEQ30, dict(max_stack=-1)),
+              (SEQ30, dict(nb_mode=0)), (SEQ30, dict(nb_mode=-1))]
+
+
+@pytest.mark.parametrize("seq,kw", DEGENERATE,
+                         ids=["empty", "max_stack_0", "max_stack_-1",
+                              "nb_mode_0", "nb_mode_-1"])
+def test_root_fold_sends_degenerate_inputs_to_fold_cpu(seq, kw, monkeypatch,
+                                                       caplog):
+    """An empty sequence, max_stack < 1 and nb_mode < 1 go to fold_cpu
+    before any engine is built (logged, counted), so the root fold equals
+    rafft_tpu.fold, final beam and trajectory, pair and node lists."""
+    def no_engine(*a, **k):
+        raise AssertionError("an engine was built")
+
+    monkeypatch.setattr(FT, "FoldEngine", no_engine)
+    for traj in (False, True):
+        before = FT.REFOLDS
+        caplog.clear()
+        with caplog.at_level(logging.INFO, logger=FT.__name__):
+            got = rafft_tpu_torch.fold(seq, traj=traj, device="cpu", **kw)
+        assert FT.REFOLDS == before + 1
+        assert "goes to fold_cpu" in caplog.text
+        assert FT.fold_refusal(seq, kw.get("nb_mode", 100),
+                               kw.get("max_stack", 1), None) in caplog.text
+        want = rafft_tpu.fold(seq, traj=traj, **kw)
+        if traj:
+            assert [(_rows(s), _lists(s)) for s in got[1]] == \
+                [(_rows(s), _lists(s)) for s in want[1]]
+            got, want = got[0], want[0]
+        assert (_rows(got), _lists(got)) == (_rows(want), _lists(want))
+
+
 def test_root_fold_refolds_a_flagged_fold(monkeypatch, caplog):
     """A fold the engine flags comes from fold_cpu, logged with its cause."""
     seq, nb, ms, mb = FOLD_ARGS[0]
