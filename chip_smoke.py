@@ -86,8 +86,9 @@ result line):
                 the committed beams.  Every step keeps the kernel's layout
                 contract, and the kernel on one captured step of each
                 bucket equals the plain version, timed beside its bound.
-                These folds run once, with the layout check inside the
-                timed run (one host read a step);
+                Each timed fold runs graphed; the layout check (one host
+                read a step) runs on one more eager fold of its first
+                batch;
   8. sweep    - the port's sweep() on the first 16 journal rows writes
                 the journal's beams-journal rows;
   9. cli      - `python -m rafft_tpu_torch.cli.fold_cli --device cuda`
@@ -201,6 +202,31 @@ result line):
                 equal fold_cpu's); rows the limit cuts off are printed as
                 unchecked with their indices, no failure and never counted
                 as equal.  Prints `k200_full: {...}`, the record per bucket;
+  12. graph   - the fold engine's CUDA graphs (FoldEngine on a card replays
+                one graph per G=4 swap+step rounds in run_stream,
+                _advance_graphed): the 64 headline rows, the journal's 6
+                rows of <= 32 nt at N=32 and 16 of 33-64 nt at N=64, and
+                the first rows of the 128/256/512/1024 buckets
+                (32/32/16/4, plus the bucket's flagged rows), each at
+                bucket_config(N, 100, 50, 1000), folded through run_stream
+                with graphs, each fold held to the journal as phase 7
+                holds it;
+                then on one batch (the headline configuration, 16 rows and
+                16 shadow sequences) the eager engine (graphs=False) and
+                the graphed one in lock-step, every key of the state equal
+                after every call of G rounds; a replay under
+                torch.cuda.set_sync_debug_mode("error") (no call that
+                waits for the device); and tools/measure.py:graph_cell at
+                the headline: device ops per step and host events that wait
+                for the device in one call of each path (profiler), ms per
+                step of both paths in turns, the graph pool's bytes, the
+                wrapper's host time and the fixed CPLX width's cost.
+Every other phase folds with graphs too, the engine's default on a card:
+the timed folds of phases 5, 7, 7b and 7c, the sweeps and the CLI; the
+folds that hold every step's kernel tensors to the layout contract, or
+capture one step's (tools/measure.py:capture_kernel_call), run eagerly
+beside them, since a replay calls no wrapper.  A replay counts the
+kernel's launches it holds (wavefront.count_replay), one per round.
 The default run's earlier phases are uncut; what was cut to keep it short
 is in the later ones: one seeded layout and one timed call of the plain
 version at N=2048 and 4096, 16, 16, 8 and 4 rows in the k200 phase, one pass
@@ -263,6 +289,7 @@ from rafft_tpu_torch.tools.corpus import journal, reference_order, short_rows
 from rafft_tpu_torch.tools.measure import (KERNEL_SHAPES, bucket_rows,
                                            capture_kernel_call, event_ms,
                                            first_difference_is_a_tie,
+                                           GRAPH_G, graph_cell, pool_bytes,
                                            kernel_bound, mfe_bucket_rows,
                                            mfe_profile, nested_tables,
                                            seeded_kernel_args,
@@ -593,18 +620,40 @@ def phase_weights(refs, rows_all):
     return launches
 
 
+def _stream_check(rows, out):
+    """What run_stream yielded over journal `rows`: every row once, its
+    beam the journal's with flag 0, or for a flagged row the journal's
+    flag bits (its journal beam came from the CPU refold)."""
+    if sorted(i for i, _, _ in out) != list(range(len(rows))):
+        raise AssertionError("run_stream did not yield every sequence once")
+    bad = []
+    for idx, beam, flag in out:
+        r = rows[idx]
+        if r["flagged"]:
+            if flag != r["flagged"]:
+                bad.append((idx, flag, r["flagged"]))
+        elif flag != 0 or beam != [(db, float(e)) for db, e in r["beam"]]:
+            bad.append((idx, flag, 0))
+    if bad:
+        raise AssertionError(f"{len(bad)}/{len(rows)} rows differ from the "
+                             f"journal (index, flag, journal flag): {bad[:8]}")
+
+
 def _stream(eng, rows, warm):
-    """Warm up on `warm` rows, then run_stream over `rows` with the
-    launch count and the peak set to 0 just before; check every row
-    against the journal (beam and flag 0, or the journal's flag bits
-    for a flagged row).  Every step of the warm-up, and of one more fold
+    """Warm up on `warm` rows (eagerly, then graphed), then run_stream
+    over `rows` with the launch count and the peak set to 0 just before;
+    check every row against the journal (beam and flag 0, or the
+    journal's flag bits for a flagged row).  Every step of the warm-up, and of one more fold
     of the flagged rows after the counted run, must give the kernel
     tensors that keep its layout contract.  Returns (seq/s, seconds,
-    peak bytes, launches, the wrapper's arguments at the 4th step of
+    peak bytes (allocated, plus the engine's graph pool), launches, the wrapper's arguments at the 4th step of
     the warm-up, and at the 4th step of the flagged rows' fold or
     None)."""
     step_args = capture_kernel_call(eng, [r["seq"] for r in warm],
                                     every=WT.check_layout)
+    # the graphed warm-up: the capture stays out of the timed run
+    for _ in eng.run_stream([r["seq"] for r in warm]):
+        pass
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     WT.LAUNCHES = 0
@@ -613,21 +662,8 @@ def _stream(eng, rows, warm):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = WT.LAUNCHES
-    peak = torch.cuda.max_memory_allocated()
-    if sorted(i for i, _, _ in out) != list(range(len(rows))):
-        raise AssertionError("run_stream did not yield every sequence once")
-    bad = []
-    for idx, beam, flag in out:
-        r = rows[idx]
-        if r["flagged"]:
-            # its journal beam came from the CPU refold: compare the flags
-            if flag != r["flagged"]:
-                bad.append((idx, flag, r["flagged"]))
-        elif flag != 0 or beam != [(db, float(e)) for db, e in r["beam"]]:
-            bad.append((idx, flag, 0))
-    if bad:
-        raise AssertionError(f"{len(bad)}/{len(rows)} rows differ from the "
-                             f"journal (index, flag, journal flag): {bad[:8]}")
+    peak = torch.cuda.max_memory_allocated() + pool_bytes(eng)
+    _stream_check(rows, out)
     if launches == 0:
         raise AssertionError("the run never launched the wavefront kernel")
     flagged = [r["seq"] for r in rows if r["flagged"]]
@@ -706,26 +742,29 @@ def phase_buckets(rows_all):
 
 
 def _fold_once(eng, seqs):
-    """One run_stream over `seqs` with the launch count and the peak set
-    to 0 just before it; every step's kernel tensors are held to the
-    layout contract inside the run (one host read a step), and the 4th
-    step's are kept.  Returns (beams and flags by index, seconds, peak
-    bytes, launches, the kept arguments)."""
+    """One run_stream over `seqs` (graphed on the card) with the launch
+    count and the peak set to 0 just before it; then, eagerly, one more
+    fold of its first batch in which every step's kernel tensors are held
+    to the layout contract (one host read a step) and the 4th step's are
+    kept.  Returns (beams and flags by index, seconds, peak bytes
+    (allocated, plus the engine's graph pool), launches, the kept
+    arguments)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     WT.LAUNCHES = 0
-    out = []
     t0 = time.perf_counter()
-    step_args = capture_kernel_call(eng, seqs, every=WT.check_layout, out=out)
+    out = list(eng.run_stream(seqs))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    launches = WT.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() + pool_bytes(eng)
     if sorted(i for i, _, _ in out) != list(range(len(seqs))):
         raise AssertionError("run_stream did not yield every sequence once")
-    if WT.LAUNCHES == 0:
+    if launches == 0:
         raise AssertionError("the run never launched the wavefront kernel")
+    step_args = capture_kernel_call(eng, seqs[: eng.B], every=WT.check_layout)
     by_index = {i: (beam, flag) for i, beam, flag in out}
-    return (by_index, secs, torch.cuda.max_memory_allocated(), WT.LAUNCHES,
-            step_args)
+    return by_index, secs, peak, launches, step_args
 
 
 def _ckpt_list(name):
@@ -806,8 +845,8 @@ def phase_k200(rows_all):
             f"{refolded}); {n_flagged} flagged, of which {flagged_equal} give "
             f"the committed best row all the same; flags "
             f"{[FT.flag_names(f) for f in flags]}; "
-            f"{len(rows) / secs:.3f} seq/s ({secs:.3f} s for {len(rows)}, the "
-            f"layout check inside); peak {peak / 2**20:.1f} MiB; wavefront "
+            f"{len(rows) / secs:.3f} seq/s ({secs:.3f} s for {len(rows)}, "
+            f"graphed); peak {peak / 2**20:.1f} MiB; wavefront "
             f"launches {n_launch}")
         launches[N] = n_launch
         steps.append(_kernel_vs_bound("k200 step", step_args, N,
@@ -840,8 +879,8 @@ def phase_long(refs):
                 f"best {beam[0][1]:.2f} kcal/mol on the card, "
                 f"{r['nrj']:.2f} committed (CPU parity engine)"))
     log(f"[long] N=4096 B={eng.B}: {len(rows) / secs:.4f} seq/s ({secs:.3f} s "
-        f"for {len(rows)}, {secs / launches[4096]:.3f} s a step, the layout "
-        f"check inside); peak {peak / 2**20:.1f} MiB; wavefront launches "
+        f"for {len(rows)}, {secs / launches[4096]:.3f} s a round, graphed); "
+        f"peak {peak / 2**20:.1f} MiB; wavefront launches "
         f"{launches[4096]}")
     steps.append(_kernel_vs_bound("long step", step_args, 4096, reps=50,
                                   real_step=True))
@@ -874,7 +913,7 @@ def phase_long(refs):
     log(f"[long] N=2048 B={eng.B}: {n_eval} beam energies equal "
         f"eval_structure_int, ascending; {len(seqs) / secs:.4f} seq/s "
         f"({secs:.3f} s for {len(seqs)}, {secs / launches[2048]:.3f} s a "
-        f"step, the layout check inside); peak {peak / 2**20:.1f} MiB; "
+        f"round, graphed); peak {peak / 2**20:.1f} MiB; "
         f"wavefront launches {launches[2048]}")
     steps.append(_kernel_vs_bound("long step", step_args, 2048, reps=100,
                                   real_step=True))
@@ -1147,10 +1186,10 @@ def phase_multi(rows_all, smi):
     # to the dry run on the CPU; and no card is ever invented
     real, calls = FT.wavefront_tables, []
 
-    def spy(*args):
+    def spy(*args, **kw):
         calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
                            for a in args))
-        return real(*args)
+        return real(*args, **kw)
 
     FT.wavefront_tables = spy
     WT.LAUNCHES = 0
@@ -1457,10 +1496,10 @@ def phase_tools(rows_all):
              (s32, in_journal[(s32, name32)]["beam"][0][0], name32)]
     real, calls = FT.wavefront_tables, []
 
-    def spy(*args):
+    def spy(*args, **kw):
         calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
                            for a in args))
-        return real(*args)
+        return real(*args, **kw)
 
     FT.wavefront_tables = spy
     WT.LAUNCHES = 0
@@ -1533,7 +1572,8 @@ def phase_tools(rows_all):
         f"refolded on the CPU, by cause {stats['flag_causes']} (row flags "
         f"{[FT.flag_names(f) for f in flags if f]}); "
         f"{len(rows64) / secs:.3f} seq/s ({secs:.3f} s, the refold "
-        f"included); peak {peak / 2**20:.1f} MiB; wavefront launches "
+        f"included); peak allocated {peak / 2**20:.1f} MiB (the sweep's "
+        f"graph pool not counted); wavefront launches "
         f"{launches['_sweep64']}")
     # every call of the same fold, held to the plain version's tables
     eng = FoldEngine(bucket_config(64, 200, 200, 1000),
@@ -1553,6 +1593,101 @@ def phase_tools(rows_all):
     steps.append(_kernel_vs_bound("sweep64 step", step_args, 64,
                                   real_step=True))
     return launches, steps
+
+
+# phase graph: journal rows folded per bucket (beside its flagged rows);
+# the journal's rows of <= 32 and 33-64 nt (6 and 38) came from the 128
+# bucket, and fold alike at N=32 and 64 (every lag of their regions fits M)
+GRAPH_ROWS = {128: 32, 256: 32, 512: 16, 1024: 4}
+GRAPH_SHORT = {32: (0, 16), 64: (32, 16)}
+
+
+@phase
+def phase_graph(rows_all):
+    """The fold engine's CUDA graphs: folds against the journal, the eager
+    and the graphed state in lock-step, no host wait in a replay, and the
+    graph against the eager step in numbers (module note, phase 12)."""
+    launches = {}
+    G = GRAPH_G
+    head = [r for r in rows_all if len(r["seq"]) <= 120]
+    cells = [("headline", HEADLINE, B, head[:64])] + [
+        (str(N), bucket_config(N, 100, 50, 1000), bucket_batch(16, N),
+         [r for r in rows_all if lo < len(r["seq"]) <= N][:count])
+        for N, (lo, count) in GRAPH_SHORT.items()] + [
+        (str(N), bucket_config(N, 100, 50, 1000), bucket_batch(16, N),
+         bucket_rows(rows_all, N, count)) for N, count in GRAPH_ROWS.items()]
+    for tag, cfg, nb, rows in cells:
+        eng = FoldEngine(cfg, B=nb, device="cuda")
+        if not eng.graphs:
+            raise AssertionError("FoldEngine on a card does not default to "
+                                 "graphs")
+        torch.cuda.synchronize()
+        WT.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = list(eng.run_stream([r["seq"] for r in rows]))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        _stream_check(rows, out)
+        launches[tag] = WT.LAUNCHES
+        if launches[tag] == 0 or list(eng._graphs) != [("_advance", G)]:
+            raise AssertionError(f"graph {tag}: the fold did not replay one "
+                                 f"graph of G={G} rounds: {list(eng._graphs)},"
+                                 f" {launches[tag]} launches")
+        flags = [r["flagged"] for r in rows if r["flagged"]]
+        log(f"[graph] {tag} (N={cfg.N}, B={nb}): {len(rows) - len(flags)} "
+            f"rows equal the journal with flag 0, flagged rows carry {flags}; "
+            f"{len(rows) / secs:.3f} seq/s ({secs:.3f} s, one graph of {G} "
+            f"rounds replayed, its capture included); wavefront launches "
+            f"{launches[tag]}")
+        del eng
+    # the eager and the graphed engine in lock-step on one batch with
+    # shadow sequences
+    seqs = [r["seq"] for r in head[: 2 * B]]
+    eager = FoldEngine(HEADLINE, B=B, device="cuda", graphs=False)
+    graph = FoldEngine(HEADLINE, B=B, device="cuda")
+    sts = []
+    for eng in (eager, graph):
+        st = eng.init_state(seqs[:B], seqids=list(range(B)))
+        codes, n = eng._encode(seqs[B:], B)
+        sts.append(eng._drain_load(
+            st, *(torch.as_tensor(x, device="cuda") for x in (
+                np.zeros(B, bool), np.ones(B, bool), codes, n,
+                np.arange(B, 2 * B, dtype=np.int32)))))
+    st_e, st_g = sts
+    calls = 0
+    while True:
+        st_e = eager._advance(st_e, G)
+        st_g = graph._advance_graphed(st_g, G)
+        calls += 1
+        diff = [k for k in st_e if not torch.equal(st_e[k], st_g[k])]
+        if diff:
+            raise AssertionError(f"graph: after call {calls} of {G} rounds "
+                                 f"the graphed state differs in {diff}")
+        if not bool(eager._runnable(st_e).any()) or calls == 16:
+            break
+    banked = int(st_e["out_valid"].sum())
+    # a replay under the sync debug mode: any call that waits for the
+    # device raises (the static state is passed back, so nothing is copied)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph._advance_graphed(st_g, G)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"[graph] lock-step at the headline configuration, B={B} with {B} "
+        f"shadows: eager and graphed states equal in every key after each "
+        f"of {calls} calls of {G} rounds ({banked} folds banked); a replay "
+        f"ran under set_sync_debug_mode('error') without a synchronising "
+        f"call")
+    rec = graph_cell(rows_all, 128, 50, passes=2, G=G)
+    if rec["syncs_in_call"]["graph"] != 0:
+        raise AssertionError(f"a graph replay waited for the device: {rec}")
+    log(f"[graph] headline: ops/step eager {rec['ops_per_step']['eager']:.0f}"
+        f", graph {rec['ops_per_step']['graph']:.0f}; ms/step eager "
+        f"{rec['median_ms_per_step']['eager']:.3f}, graph "
+        f"{rec['median_ms_per_step']['graph']:.3f}; host syncs in a replay "
+        f"{rec['syncs_in_call']['graph']} (eager call "
+        f"{rec['syncs_in_call']['eager']})")
+    return launches, []
 
 
 def _bucket_marks():
@@ -1947,7 +2082,8 @@ def main(argv=None):
     ap.add_argument("--only", help="comma-separated phases to run after "
                     "device and build (kernel, fold_one, oracle, weights, "
                     "headline, loops, buckets, k200, long, sweep, cli, mfe, "
-                    "api, multi, bench, tools), then --full and --k200-full "
+                    "api, multi, bench, tools, graph), then --full and "
+                    "--k200-full "
                     "where given: a partial run, which prints no result line")
     args = ap.parse_args(argv)
     smi = phase_device()
@@ -1979,7 +2115,8 @@ def main(argv=None):
         api=lambda: counted("api", (phase_api(refs), [])),
         multi=lambda: counted("multi", (phase_multi(rows, smi), [])),
         bench=lambda: counted("bench", phase_bench(rows, refs)),
-        tools=lambda: counted("tools", phase_tools(rows)))
+        tools=lambda: counted("tools", phase_tools(rows)),
+        graph=lambda: counted("graph_", phase_graph(rows)))
     only = args.only.split(",") if args.only else list(phases)
     for name in only:
         phases[name]()

@@ -25,9 +25,19 @@ What differs from the JAX engine:
 * lookups are plain gathers: no one-hot einsums, no lane compaction and
   no f32 packing of dE / hash halves (dE, live-region counts and hashes
   stay integer tensors; hashes are uint32 values held in int64);
-* the enumeration's while loop is a Python loop over at most W windows
-  in which all lanes advance together and a per-lane mask freezes the
-  lanes that have finished; one host scalar per window decides the exit.
+* the enumeration's while loop is a Python loop over all W windows in
+  which all lanes advance together and a per-lane mask freezes the lanes
+  that have finished (a window with no lane left to run leaves the state
+  bit for bit as it was); the complex candidates are evaluated at the
+  fixed width CPLX.  So no stage of a step reads the device and every
+  shape in it is fixed by the configuration;
+* what jax.jit gives the JAX engine, a CUDA graph gives this one: on a
+  card, run_stream replays one graph of G swap+step rounds
+  (_advance_graphed, the counterpart of the jitted _advance_impl) and
+  run one graph of G steps (_steps, the jitted _steps_impl), captured once per
+  engine and G on static state buffers, with one private memory pool per
+  engine.  graphs=False runs the same code eagerly (the CPU path, and
+  the plain version the graphs are held to).
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from rafft_tpu_torch.energy.eval_torch import (_ext_stem_v, _hairpin_v,
                                                _int_loop_v, _kmer_keys,
                                                _ml_stem, _ptype, analyze_pt,
                                                device_params, eval_pt, take)
+from rafft_tpu_torch.engine import wavefront as WT
 from rafft_tpu_torch.engine.wavefront import small_tables, wavefront_tables
 
 _LOG = logging.getLogger(__name__)
@@ -191,7 +202,7 @@ def _lag_norm(cfg, mlen, raw):
 
 def _correlate(cfg, W, rcodes, mlen, integral):
     """Normalised FFT correlation per region: [B,K,R,2N-1] float32
-    (fold_jax._correlate)."""
+    (fold_jax._correlate).  W as correlate_fft takes it."""
     raw = correlate_fft(W, rcodes)
     if integral:
         raw = raw.round()
@@ -427,20 +438,41 @@ def engine_refusal(cfg: EngineConfig) -> str | None:
 
 
 class FoldEngine:
-    """Batched fold engine for one (config, batch size, device)."""
+    """Batched fold engine for one (config, batch size, device).
 
-    def __init__(self, cfg: EngineConfig, B: int, device="cuda"):
+    graphs (default: on a CUDA device) makes run_stream and run replay
+    CUDA graphs (_advance_graphed; _graphed of _steps); graphs=False runs the
+    same steps eagerly, op by op.  The CPU has no graphs."""
+
+    def __init__(self, cfg: EngineConfig, B: int, device="cuda", graphs=None):
         refusal = engine_refusal(cfg)
         if refusal is not None:
             raise ValueError(refusal)
         self.cfg = cfg
         self.B = B
         self.device = torch.device(device)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        if graphs and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
+        self.graphs = bool(graphs)
         self.dp = device_params(cfg.temp, cfg.N, self.device)
         self.W = weight_matrix(cfg.gc_wei, cfg.au_wei, cfg.gu_wei)
         self.integral = _weights_integral(cfg)
-        # the kernel's lookup tables, uploaded once (not per step)
+        # the kernel's lookup tables and the FFT correlation's weights,
+        # uploaded once (not per step)
         self.wtabs = small_tables(self.dp, self.W, self.device)
+        self.fft_W = torch.as_tensor(np.asarray(self.W, np.float32),
+                                     device=self.device)
+        # the kernel's seven output tables, allocated at the first step;
+        # the layout contract is checked once, on that step
+        self._tables_out = None
+        self._layout_checked = False
+        # CUDA graphs: one per (kind, G), on the static state buffers,
+        # all in one private memory pool (see _graphed)
+        self._graphs = {}
+        self._static = None
+        self._pool = None
         # Zobrist coefficients: the same draws as fold_jax, so hashes and
         # seen-sets equal the JAX engine's
         rng = np.random.default_rng(0xA5F7)
@@ -510,8 +542,10 @@ class FoldEngine:
         m2 = mask[:, None, None]
         kk = torch.arange(K, device=dev)
         root_active = (kk == 0) & (n_new[:, None] > 0)
-        root_rorder = torch.full((K, R), -2, dtype=torch.int32, device=dev)
-        root_rorder[0, 0] = -1
+        # -1 (the exterior region) at [0, 0], -2 elsewhere; built on the
+        # device, as a capture needs (an item assignment copies from the host)
+        flat = torch.arange(K * R, device=dev).view(K, R)
+        root_rorder = torch.where(flat == 0, -1, -2).to(torch.int32)
         st = dict(state)
         st["codes"] = torch.where(m1, codes_new, state["codes"])
         st["n"] = torch.where(mask, n_new, state["n"])
@@ -568,12 +602,21 @@ class FoldEngine:
 
         # ---- correlation + window slide: the wavefront tables; for
         # non-integral weights the FFT correlation ranks the lags
-        tabs = wavefront_tables(cfg, self.wtabs, rcodes, rpos, mlen,
-                                z1row, z2row)
+        args = (cfg, self.wtabs, rcodes, rpos, mlen, z1row, z2row)
+        if not self._layout_checked:
+            # one host read on the engine's first step, before any capture
+            WT.check_layout(*args)
+            self._layout_checked = True
+        if rcodes.is_cuda:
+            if self._tables_out is None:
+                self._tables_out = WT.empty_tables(rcodes.shape, rcodes.device)
+            tabs = wavefront_tables(*args, out=self._tables_out)
+        else:
+            tabs = wavefront_tables(*args)
         if self.integral:
             cor = _lag_norm(cfg, mlen, tabs["cor_raw"][..., : 2 * N - 1])
         else:
-            cor = _correlate(cfg, self.W, rcodes, mlen, False)
+            cor = _correlate(cfg, self.fft_W, rcodes, mlen, False)
         lags, lvals = _top_lags(cfg, cor)
         lag_ok = ((lvals > NEG / 2) & (mlen[..., None] >= 2)
                   & active[:, :, None, None])
@@ -589,51 +632,68 @@ class FoldEngine:
                     lag_ok=lag_ok, ws=ws, hd1=hd1, hd2=hd2, delta=delta,
                     cplx=cplx, has=has, p0=p0)
 
+    def complex_delta(self, state, c, width=None):
+        """The complex candidates' dE by full evaluation under the CPLX
+        budget, complex first (fold_jax._seq_step): returns the dE of
+        every candidate [B,K,R,M] and which complex ones were resolved.
+
+        Every row evaluates `width` candidates, the whole budget CPLX by
+        default, as the JAX engine does: a fixed shape, whatever each
+        row's count of complex candidates; the entries past a row's
+        complex prefix are masked.  A smaller width serves
+        tools/measure.py, which times the fixed width against the longest
+        prefix that a step needs."""
+        cfg, dp, dev = self.cfg, self.dp, self.device
+        K, R, M, N = cfg.K, cfg.R, cfg.M, cfg.N
+        B = self.B
+        codes, n, pt, energy = (state[k] for k in ("codes", "n", "pt",
+                                                   "energy"))
+        ws, delta = c["ws"], c["delta"]
+        flat_cplx = (c["cplx"] & c["lag_ok"]).reshape(B, -1)
+        order_c = torch.sort((~flat_cplx).to(torch.uint8), dim=-1,
+                             stable=True).indices
+        ci = order_c[:, : cfg.CPLX]
+        on = flat_cplx.gather(1, ci)
+        resolved = torch.zeros_like(flat_cplx).scatter(1, ci, on)
+        if width is not None:
+            ci, on = ci[:, :width], on[:, :width]
+        X = ci.shape[1]
+        if X == 0:
+            return delta, resolved.view(B, K, R, M)
+        ck = (ci // (R * M)).clamp(0, K - 1)
+        cr = (ci // M) % R
+        selr = torch.arange(R, device=dev) == cr[..., None]
+        cflat = lambda f: f.reshape(B, -1).gather(1, ci)[..., None]
+        cand_pts = _combo_pt(
+            cfg, pt, c["rloc"], c["rslot"], c["rpos"], ck,
+            torch.where(selr, cflat(ws["max_i"]), 0),
+            torch.where(selr, cflat(ws["max_j"]), 0),
+            torch.where(selr, cflat(ws["max_nb"]), 0), selr)
+        cand_E = eval_pt(dp, codes[:, None].expand(B, X, N), cand_pts,
+                         n[:, None].expand(B, X))
+        c_delta = cand_E - energy.gather(1, ck)
+        delta_flat = delta.reshape(B, -1)
+        delta_flat = delta_flat.scatter(
+            1, ci, torch.where(on, c_delta, delta_flat.gather(1, ci)))
+        return delta_flat.view(B, K, R, M), resolved.view(B, K, R, M)
+
     def step(self, state):
         """One fold step of every lane (fold_jax._seq_step, batched)."""
-        cfg, dp, dev = self.cfg, self.dp, self.device
-        K, R, M, N, V, S = cfg.K, cfg.R, cfg.M, cfg.N, cfg.V, cfg.S
+        cfg, dev = self.cfg, self.device
+        K, R, M, V, S = cfg.K, cfg.R, cfg.M, cfg.V, cfg.S
         B = self.B
         i32 = torch.int32
-        codes, n, pt = state["codes"], state["n"], state["pt"]
+        pt = state["pt"]
         energy, active, rorder = state["energy"], state["active"], state["rorder"]
         done = state["done"]
 
         c = self.candidates(state)
         rpos, rloc, rslot, mlen = c["rpos"], c["rloc"], c["rslot"], c["mlen"]
         lag_ok, ws, hd1, hd2 = c["lag_ok"], c["ws"], c["hd1"], c["hd2"]
-        delta, cplx, has, p0 = c["delta"], c["cplx"], c["has"], c["p0"]
+        cplx, has, p0 = c["cplx"], c["has"], c["p0"]
         m_ = mlen[..., None]
 
-        # ---- complex candidates: full eval under budget (complex first)
-        flat_cplx = (cplx & lag_ok).reshape(B, -1)
-        order_c = torch.sort((~flat_cplx).to(torch.uint8), dim=-1,
-                             stable=True).indices
-        c_idx = order_c[:, : cfg.CPLX]
-        c_on = flat_cplx.gather(1, c_idx)
-        resolved = torch.zeros_like(flat_cplx).scatter(1, c_idx, c_on)
-        delta_flat = delta.reshape(B, -1)
-        # c_on is a prefix of every row: evaluate only as far as the
-        # longest prefix reaches (the rest would be discarded)
-        n_on = int(c_on.sum(1).max())
-        if n_on:
-            ci, on = c_idx[:, :n_on], c_on[:, :n_on]
-            ck = (ci // (R * M)).clamp(0, K - 1)
-            cr = (ci // M) % R
-            selr = torch.arange(R, device=dev) == cr[..., None]
-            cflat = lambda f: f.reshape(B, -1).gather(1, ci)[..., None]
-            cand_pts = _combo_pt(
-                cfg, pt, rloc, rslot, rpos, ck,
-                torch.where(selr, cflat(ws["max_i"]), 0),
-                torch.where(selr, cflat(ws["max_j"]), 0),
-                torch.where(selr, cflat(ws["max_nb"]), 0), selr)
-            cand_E = eval_pt(dp, codes[:, None].expand(B, n_on, N), cand_pts,
-                             n[:, None].expand(B, n_on))
-            c_delta = cand_E - energy.gather(1, ck)
-            delta_flat = delta_flat.scatter(
-                1, ci, torch.where(on, c_delta, delta_flat.gather(1, ci)))
-        delta = delta_flat.view(B, K, R, M)
-        resolved = resolved.view(B, K, R, M)
+        delta, resolved = self.complex_delta(state, c)
         dropped = (cplx & lag_ok & ~resolved).sum((1, 2, 3), dtype=i32)
 
         # ---- acceptance (reference float32 semantics)
@@ -694,10 +754,11 @@ class FoldEngine:
                 out[k] = _rows(torch.cat([bm[k], x], 1), o)
             return out
 
+        # every window runs, as the JAX while_loop's bound allows: a lane
+        # that has finished (or never ran) is frozen by `run`, so a window
+        # with no lane left to run is a no-op on the state
         for _ in range(cfg.W):
             run = (mode == M_NORM) & ~done
-            if not bool(run.any()):
-                break
             g = base[:, None] + vv                                  # [B,V]
             kv = torch.searchsorted(Pk, g, right=True)
             kvc = kv.clamp(0, K - 1)
@@ -911,15 +972,86 @@ class FoldEngine:
         return ((st["seqid"] >= 0) & ~fin) | swappable
 
     def _advance(self, state, G: int):
-        """Up to G swap+step rounds (early exit when no lane can make
-        progress), then a final swap so folds that finished on the last
-        step are visible in the output buffers."""
+        """G swap+step rounds, then a final swap so folds that finished on
+        the last step are visible in the output buffers
+        (fold_jax._advance_impl).  No host read: a round in which no lane
+        can make progress leaves the whole state as it was, as the JAX
+        while_loop stops there.  The test is batch-wide, as that loop's
+        condition is: while any lane is runnable, every lane steps."""
         for _ in range(G):
-            if not bool(self._runnable(state).any()):
-                break
-            state = self.step(self._swap(state))
-            state["lane_steps"] = state["lane_steps"] + (~state["done"]).to(torch.int32)
+            go = self._runnable(state).any()
+            nxt = self.step(self._swap(state))
+            nxt["lane_steps"] = nxt["lane_steps"] + (~nxt["done"]).to(torch.int32)
+            state = {k: torch.where(go, nxt[k], v) for k, v in state.items()}
         return self._swap(state)
+
+    def _steps(self, state, G: int):
+        """G fold steps (fold_jax._steps_impl).  A step of a lane that is
+        done leaves it as it was, so no early exit is needed."""
+        for _ in range(G):
+            state = self.step(state)
+        return state
+
+    # ---------------- CUDA graphs
+    def _graphed(self, body, state, G: int):
+        """body(state, G), self._advance or self._steps, replayed as one
+        CUDA graph: the state is copied into the
+        engine's static buffers (only the tensors that are not those
+        buffers already) and the graph, captured at its first use, runs
+        the G rounds on them with no host read and writes the result back
+        into them.  Returns a dict of the static buffers: the next replay
+        overwrites them.
+
+        The graph of each (body, G) is captured once per engine, so the
+        cache key is (N, B, K, M, R, V, S, CPLX, ..., G): the engine's
+        whole configuration and batch size.  Before its capture, one round
+        runs eagerly on a side stream (the warm-up: the kernel's library,
+        cuFFT's plans and the layout check are made there).  All graphs of
+        an engine share one private memory pool: each keeps nothing live
+        in it between replays (its outputs are copied into the static
+        buffers), and the engine's graphs never run at the same time.
+        A capture that fails raises; nothing falls back to the eager
+        path."""
+        if self._static is None:
+            self._static = {k: v.clone() for k, v in state.items()}
+        st = self._static
+        if state.keys() != st.keys():
+            raise ValueError("the state's keys differ from the graph's")
+        for k, v in state.items():
+            if v is not st[k]:
+                st[k].copy_(v)
+        key = (body.__name__, G)
+        if key not in self._graphs:
+            self._graphs[key] = self._capture(body, G)
+        graph, launches = self._graphs[key]
+        graph.replay()
+        WT.count_replay(launches)
+        return dict(st)
+
+    def _capture(self, body, G):
+        """Warm up, then capture body(static state, G) and its copy back
+        into the static buffers.  Returns (graph, kernel launches in it)."""
+        st = self._static
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            body(dict(st), 1)
+        cur.wait_stream(side)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        before = WT.CAPTURED
+        with torch.cuda.graph(graph, pool=self._pool):
+            out = body(dict(st), G)
+            for k, v in st.items():
+                v.copy_(out[k])
+            del out      # nothing of the capture stays live in the pool
+        return graph, WT.CAPTURED - before
+
+    def _advance_graphed(self, state, G: int):
+        """_advance(state, G) as one CUDA graph replay (see _graphed)."""
+        return self._graphed(self._advance, state, G)
 
     def _drain_load(self, state, clear, load, codes_new, n_new, sid_new):
         st = dict(state)
@@ -941,9 +1073,12 @@ class FoldEngine:
         final beam [(dot_bracket, energy_kcal)] best-first and flagged
         the FLAG_* cause bitmask.  Finished lanes swap onto preloaded
         shadow sequences between steps; the host drains banked results
-        and reloads shadows every G steps.  Every state update builds new
-        tensors and drops the old ones at once (what buffer donation buys
-        the JAX engine)."""
+        and reloads shadows every G steps, reading `done` and the output
+        buffers once per G steps.  On a card (graphs) the G steps are one
+        CUDA graph replay on the engine's static state buffers, which
+        the host's updates are copied into; else every state update
+        builds new tensors and drops the old ones at once (what buffer
+        donation buys the JAX engine)."""
         cfg, B = self.cfg, self.B
         nseq = len(seqs)
         state = self.init_state(seqs[:B], seqids=list(range(min(B, nseq))))
@@ -965,12 +1100,12 @@ class FoldEngine:
         state = self._drain_load(state, self._t(np.zeros(B, bool)),
                                  self._t(load), self._t(codes_new),
                                  self._t(n_new), self._t(sid_new))
+        advance = self._advance_graphed if self.graphs else self._advance
         emitted = 0
         while emitted < nseq:
-            state = self._advance(state, G)
+            state = advance(state, G)
             (o_pt, o_E, o_act, o_n, o_sid, o_done, o_flag, o_valid,
-             l_done, l_sid, l_steps) = (state[k].cpu().numpy()
-                                        for k in self._OUT_KEYS)
+             l_done, l_sid, l_steps) = self._fetch(state, self._OUT_KEYS)
             fresh = np.where(o_valid)[0]
             clear = np.zeros(B, bool)
             for b in fresh:
@@ -991,10 +1126,9 @@ class FoldEngine:
                 live = (l_sid >= 0) & (l_done | (l_steps >= LIM))
                 if not live.any():
                     continue
-                pt_l, E_l, act_l, n_l, cd_l, es_l = (
-                    state[k].cpu().numpy() for k in
-                    ("pt", "energy", "active", "n", "cplx_dropped",
-                     "enum_suspect"))
+                pt_l, E_l, act_l, n_l, cd_l, es_l = self._fetch(
+                    state, ("pt", "energy", "active", "n", "cplx_dropped",
+                            "enum_suspect"))
                 kill = np.zeros(B, bool)
                 for b in np.where(live)[0]:
                     rows = self._rows_from(pt_l[b], E_l[b], act_l[b], n_l[b])
@@ -1010,6 +1144,20 @@ class FoldEngine:
                                      torch.zeros_like(state["n"]))
                 state["seqid"] = torch.where(killt, -1, state["seqid"])
 
+    @staticmethod
+    def _fetch(state, keys):
+        """The int32 and bool tensors `keys` of `state` as numpy arrays, in
+        one device-to-host copy (one host read)."""
+        ts = [state[k] for k in keys]
+        flat = torch.cat([t.reshape(-1).to(torch.int32) for t in ts])
+        flat = flat.cpu().numpy()
+        out, at = [], 0
+        for t in ts:
+            x = flat[at: at + t.numel()].reshape(tuple(t.shape))
+            out.append(x.astype(bool) if t.dtype == torch.bool else x)
+            at += t.numel()
+        return out
+
     def _rows_from(self, pt_k, E_k, act_k, n_b):
         rows = []
         for k in range(self.cfg.K):
@@ -1024,19 +1172,29 @@ class FoldEngine:
     def run(self, seqs, collect_traj=False, structures=False):
         """Fold `seqs` (at most B) to their fixed points.  Returns the
         final beams (one per sequence), the trajectory (the beam before
-        every step) with collect_traj=True, and the last state.  A beam
+        every step) with collect_traj=True, and the last state.  On a
+        card (graphs) the steps are replays of a graph of 4 steps, or of
+        one step with collect_traj=True; the last state is then the
+        engine's static buffers (the next run overwrites them).  A beam
         is [(dot_bracket, energy_kcal)] best-first, or with
         structures=True a list of Structure whose pair_list and
         node_list are filled (_structures)."""
         read = self._structures if structures else self._beams
         state = self.init_state(seqs)
         traj = []
-        for _ in range(self.cfg.max_steps):
+        # replaying graphs without a trajectory, the host reads `done`
+        # once per G steps: a step on a finished batch leaves it as it was
+        G = 4 if self.graphs and not collect_traj else 1
+        steps = 0
+        while steps < self.cfg.max_steps:
             if bool(state["done"].all()):
                 break
             if collect_traj:
                 traj.append(read(state, len(seqs)))
-            state = self.step(state)
+            g = min(G, self.cfg.max_steps - steps)
+            state = (self._graphed(self._steps, state, g) if self.graphs
+                     else self._steps(state, g))
+            steps += g
         beams = read(state, len(seqs))
         if collect_traj:
             return beams, traj, state

@@ -17,7 +17,8 @@ entries and zeroed tail included.
   algorithm: the recurrence over the region's own m x m cells only, and
   closed forms for every entry that the padding cells decide;
 * wavefront_tables launches the hand-written kernel csrc/wavefront.cu
-  for CUDA tensors;
+  for CUDA tensors, into tables the caller may allocate once
+  (empty_tables), also inside a CUDA graph capture;
 * wavefront_work counts the bytes and operations a call needs, for the
   kernel's bound on the card;
 * check_layout tells whether a call's tensors keep the layout contract.
@@ -55,8 +56,13 @@ from rafft_tpu_torch import _build
 MASK32 = 0xFFFFFFFF
 KEYS = ("cor_raw", "max_nb", "max_i", "max_j", "best_sE", "hd1", "hd2")
 
-# launches of the CUDA kernel (the plain versions do not count)
+# launches of the CUDA kernel (the plain versions do not count).  A call
+# inside a CUDA graph capture launches nothing: it adds to CAPTURED, and
+# whoever replays the graph adds the launches it holds (count_replay)
 LAUNCHES = 0
+CAPTURED = 0
+# argument signatures (shapes, device, min_hp) the wrapper has checked
+_CHECKED = set()
 
 
 class SmallTables(NamedTuple):
@@ -391,19 +397,19 @@ def _lib():
     return lib
 
 
-def wavefront_tables(cfg, tabs, rcodes, rpos, mlen, z1row, z2row):
-    """Per-lag window-scan tables (see wavefront_tables_ref).
+def empty_tables(shape, device):
+    """The seven output tables of a call on rcodes of `shape` [..., R, N],
+    uninitialised: the kernel writes every entry."""
+    *lead, R, N = shape
+    return {k: torch.empty(tuple(lead) + (R, 2 * N),
+                           dtype=torch.float32 if k == "cor_raw" else torch.int32,
+                           device=device) for k in KEYS}
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    in csrc/wavefront.cu on the current stream (built at first use) or
-    raise.  The inputs must keep the module's layout contract."""
-    global LAUNCHES
+
+def _check_args(cfg, tabs, rcodes, rpos, mlen, z1row, z2row, out):
+    """The wrapper's checks of device, type, shape and contiguity (host
+    metadata only: no device read)."""
     dev = rcodes.device
-    if dev.type == "cpu":
-        return wavefront_tables_ref(cfg, tabs, rcodes, rpos, mlen,
-                                    z1row, z2row)
-    if dev.type != "cuda":
-        raise ValueError(f"wavefront_tables: unsupported device {dev}")
     if cfg.min_hp < 0:
         raise ValueError("wavefront_tables: min_hp must be >= 0")
     *lead, R, N = rcodes.shape
@@ -423,10 +429,50 @@ def wavefront_tables(cfg, tabs, rcodes, rpos, mlen, z1row, z2row):
                 or not x.is_contiguous()):
             raise ValueError(f"wavefront_tables: table {name} must be {dt} "
                              f"[{n}] on {dev}: build it with small_tables")
+    want = tuple(lead) + (R, 2 * N)
+    for k in KEYS if out is not None else ():
+        dt = torch.float32 if k == "cor_raw" else torch.int32
+        x = out[k]
+        if (x.device != dev or x.dtype != dt or tuple(x.shape) != want
+                or not x.is_contiguous()):
+            raise ValueError(f"wavefront_tables: out[{k!r}] must be {dt} "
+                             f"{want} on {dev}: make it with empty_tables")
+
+
+def wavefront_tables(cfg, tabs, rcodes, rpos, mlen, z1row, z2row, out=None):
+    """Per-lag window-scan tables (see wavefront_tables_ref).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    in csrc/wavefront.cu on the current stream (built at first use) or
+    raise.  The inputs must keep the module's layout contract.  `out`,
+    tables from empty_tables, receives the result (a fold step passes the
+    same tables every step); else new tables are allocated.
+
+    The checks of device, type, shape, contiguity and alignment run on
+    every call but inside a CUDA graph capture, which records the launch
+    only: there the wrapper raises unless a call of the same signature
+    (shape, device, min_hp, whether `out` is given) was checked before
+    the capture."""
+    global LAUNCHES, CAPTURED
+    dev = rcodes.device
+    if dev.type == "cpu":
+        return wavefront_tables_ref(cfg, tabs, rcodes, rpos, mlen,
+                                    z1row, z2row)
+    if dev.type != "cuda":
+        raise ValueError(f"wavefront_tables: unsupported device {dev}")
+    capturing = torch.cuda.is_current_stream_capturing()
+    sig = (tuple(rcodes.shape), dev, cfg.min_hp, out is None)
+    if not capturing:
+        _check_args(cfg, tabs, rcodes, rpos, mlen, z1row, z2row, out)
+        _CHECKED.add(sig)
+    elif sig not in _CHECKED:
+        raise RuntimeError("wavefront_tables: a call of an unchecked "
+                           f"signature {sig} inside a CUDA graph capture; "
+                           "make one call before the capture")
+    *lead, R, N = rcodes.shape
     regions = (int(np.prod(lead)) if lead else 1) * R
-    out = {k: torch.empty(tuple(lead) + (R, 2 * N),
-                          dtype=torch.float32 if k == "cor_raw" else torch.int32,
-                          device=dev) for k in KEYS}
+    if out is None:
+        out = empty_tables(rcodes.shape, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib().rafft_wavefront(
@@ -436,5 +482,14 @@ def wavefront_tables(cfg, tabs, rcodes, rpos, mlen, z1row, z2row):
             regions, N, cfg.min_hp, stream)
     if err != 0:
         raise RuntimeError(f"wavefront kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    if capturing:
+        CAPTURED += 1
+    else:
+        LAUNCHES += 1
     return out
+
+
+def count_replay(n):
+    """A CUDA graph that holds n launches of the kernel was replayed."""
+    global LAUNCHES
+    LAUNCHES += n

@@ -53,6 +53,19 @@ def top_lags(cor: np.ndarray, nb_mode: int):
     return [(int(i), c) for i, c in cor_l[::-1][:nb_mode]]
 
 
+_CHANNELS = {}
+
+
+def channel_codes(device):
+    """CHANNEL_CODES as a tensor on `device`, copied from the host at the
+    first call for that device and kept (a CUDA graph capture copies
+    nothing from the host)."""
+    device = torch.device(device)
+    if device not in _CHANNELS:
+        _CHANNELS[device] = torch.as_tensor(CHANNEL_CODES, device=device)
+    return _CHANNELS[device]
+
+
 def correlate_fft(W, rcodes):
     """Raw correlation sums of regions by FFT: [..., N] codes (0-padded
     past the region) -> float32 [..., 2N-1], entry k = sum over i + j = k
@@ -62,10 +75,16 @@ def correlate_fft(W, rcodes):
     channel's pair weights of the codes, multiplied in the frequency
     domain at length 2N (no wrap-around) and summed over channels after
     the inverse transform, as fold_jax._correlate does.  The sums carry
-    float32 FFT noise; for integral weights the caller rounds them."""
+    float32 FFT noise; for integral weights the caller rounds them.
+
+    W is the [5, 5] weight matrix, or that matrix as a float32 tensor on
+    rcodes' device: given the tensor, and after a first call on that
+    device, the function copies nothing from the host, as a CUDA graph
+    capture requires."""
     N = rcodes.shape[-1]
-    Wt = torch.as_tensor(np.asarray(W, np.float32), device=rcodes.device)
-    ch = torch.as_tensor(CHANNEL_CODES, device=rcodes.device)
+    Wt = (W if isinstance(W, torch.Tensor)
+          else torch.as_tensor(np.asarray(W, np.float32), device=rcodes.device))
+    ch = channel_codes(rcodes.device)
     fwd = (rcodes[..., None, :] == ch[:, None]).to(torch.float32)
     wen = Wt[ch.long()][:, rcodes.long()].movedim(0, -2)      # [..., 4, N]
     F = 2 * N

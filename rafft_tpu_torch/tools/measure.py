@@ -1,6 +1,6 @@
 """Measure the port's fold path on one CUDA card, layer by layer.
 
-    python -m rafft_tpu_torch.tools.measure [--phases loops,headline,syncs,profile,kernel,walk,mfe]
+    python -m rafft_tpu_torch.tools.measure [--phases loops,headline,syncs,profile,kernel,walk,mfe,graph]
                                             [--passes 5] [--out DIR]
                                             [--max-stack 50] [--profile-buckets 256,512,1024]
 
@@ -19,7 +19,8 @@ Phases (each prints lines tagged with its name):
              rows of <= 120 nt at B=16, after a 16-row warm-up), folded
              `--passes` times by one engine: seconds and seq/s per pass;
              every beam must equal the journal;
-  syncs    - per bucket at the sweep's configuration: device-to-host
+  syncs    - per bucket at the sweep's configuration, on the eager path
+             (FoldEngine(graphs=False); so are profile and swap): device-to-host
              reads per step (Tensor.__bool__, __int__ and item on CUDA
              tensors), steps (= wavefront launches) and the share of the
              wall spent in FoldEngine._rows_from;
@@ -61,6 +62,23 @@ Phases (each prints lines tagged with its name):
              version or the other, in the same order of passes.  Both
              versions share everything else, so the difference is the
              loop analysis alone;
+  graph    - the fold step's CUDA graph against the same step run eagerly
+             (FoldEngine(graphs=False)), in one process, at the headline
+             (N=128, K=50, B=16), the 1024 bucket (K=50, B=4) and K=200 at
+             128 (B=16), each at the sweep's configuration: both paths'
+             states after G=4 rounds from the same start equal; device ops
+             per step and host events that wait for the device
+             (SYNC_EVENTS) in one call (torch.profiler); ms per step
+             (host clock between synchronisations around one call of 4
+             rounds from that start, `--passes` rounds of eager, graph,
+             graph, eager); busy share; the graph pool's bytes and the
+             eager call's peak rise; the wavefront wrapper's host time per
+             call, allocating and into fixed tables, and the replay's host
+             time per step (one replay, the device idle before it); the
+             complex candidates' evaluation (device ms of its CUDA graph,
+             graph_ms) at the fixed width CPLX against the longest complex
+             prefix of each of the first 8 steps (the width the step used
+             to trim to);
   mfe      - the batched MFE DP (mfe/mfe_torch.py) per MFE bucket (32 to
              1024 on a full batch of the bucket's first journal rows at
              bench_mfe's batch size, and 4096 on the longer 23S rRNA,
@@ -220,26 +238,30 @@ def capture_kernel_call(eng, seqs, call_no=4, every=None, out=None):
     the call_no-th call of the wavefront wrapper: one real fold step.
     `every`, if given, is called with the arguments of each call (say
     wavefront.check_layout, to hold every step to the layout contract);
-    `out`, if given, is a list that receives what run_stream yields."""
+    `out`, if given, is a list that receives what run_stream yields.
+    The fold runs eagerly (graphs off for its length): a graph replay
+    calls no wrapper."""
     from rafft_tpu_torch.engine import fold_torch as FT
     real, calls, kept = FT.wavefront_tables, [], []
 
-    def spy(*args):
+    def spy(*args, **kw):
         calls.append(1)
         if every is not None:
             every(*args)
         if len(calls) == call_no:
             kept.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
                               for a in args))
-        return real(*args)
+        return real(*args, **kw)
 
     FT.wavefront_tables = spy
+    graphs, eng.graphs = eng.graphs, False
     try:
         for item in eng.run_stream(seqs):
             if out is not None:
                 out.append(item)
     finally:
         FT.wavefront_tables = real
+        eng.graphs = graphs
     if not kept:
         raise AssertionError(f"the fold took fewer than {call_no} steps")
     return kept[0]
@@ -479,12 +501,14 @@ def phase_headline(rows_all, passes):
             f"({len(rows) / secs:.3f} seq/s)")
 
 
-def _engine(N, K=K_BEAM):
-    """The sweep's engine of bucket N at -n 100 -ms 50, or -n 200 -ms 200."""
+def _engine(N, K=K_BEAM, graphs=False):
+    """The sweep's engine of bucket N at -n 100 -ms 50, or -n 200 -ms 200;
+    eager unless `graphs` (the syncs and profile phases count and wrap
+    the eager step's calls)."""
     from rafft_tpu_torch.engine.fold_torch import FoldEngine
     from rafft_tpu_torch.parallel.sweep import bucket_batch, bucket_config
     return FoldEngine(bucket_config(N, max(100, K), K, 1000), B=bucket_batch(16, N),
-                      device="cuda")
+                      device="cuda", graphs=graphs)
 
 
 def _fold(eng, rows):
@@ -673,6 +697,207 @@ def phase_profile(rows_all, out_dir, K=K_BEAM, buckets=(256, 512, 1024)):
                 f"{rise.get(name, 0) / MiB:.1f} MiB")
 
 
+# phase graph: (tag, bucket, beam width K) at the sweep's configuration
+GRAPH_CELLS = (("headline", 128, 50), ("1024", 1024, 50), ("k200", 128, 200))
+GRAPH_G = 4
+# host events that wait for the device
+SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+               "cudaEventSynchronize", "aten::item", "aten::_local_scalar_dense")
+
+
+def _profiled(fn):
+    """fn() under torch.profiler: (kernel ms, device ops, host events
+    inside fn that wait for the device (SYNC_EVENTS), profiled wall
+    seconds)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with record_function("measured_call"):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        kms, nops, _ = _trace_stats(path)
+        with open(path) as fh:
+            ev = json.load(fh)["traceEvents"]
+    span = next(e for e in ev if e.get("name") == "measured_call"
+                and e.get("cat") == "user_annotation")
+    lo, hi = span["ts"], span["ts"] + span["dur"]
+    syncs = sum(e.get("name") in SYNC_EVENTS and lo <= e["ts"] <= hi
+                for e in ev)
+    return kms, nops, syncs, wall
+
+
+def _synced(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def host_us(fn, reps):
+    """Host microseconds per call of fn, with the device held busy so that
+    no call waits for it (the host's cost of enqueueing alone)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(reps * 1e-3 * 1.5e9))   # about 1 ms a call
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / reps * 1e6
+
+
+def pool_bytes(eng):
+    """Bytes of the segments of `eng`'s CUDA graph pool (0 before its
+    first capture).  What the graphs hold there is free between replays,
+    so max_memory_allocated does not count it: add it to the peak."""
+    if eng._pool is None:
+        return 0
+    pool = tuple(eng._pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def graph_ms(fn, reps):
+    """Device ms of fn() captured as a CUDA graph (after one eager call)
+    and replayed `reps` times between two events: a call of hundreds of
+    small ops would fill the launch queue before a held device, so
+    event_ms(queued=True) cannot give its device time."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return event_ms(g.replay, reps)
+
+
+def graph_cell(rows_all, N, K, passes, G=GRAPH_G):
+    """The graphed and the eager fold path of one configuration, in one
+    process: see the module note (phase graph).  Returns the numbers as a
+    dict and prints them."""
+    from rafft_tpu_torch.engine import wavefront as WT
+    from rafft_tpu_torch.engine.fold_torch import FoldEngine
+    from rafft_tpu_torch.parallel.sweep import bucket_batch, bucket_config
+    cfg = bucket_config(N, max(100, K), K, 1000)
+    B = bucket_batch(16, N)
+    rows = ([r for r in rows_all if len(r["seq"]) <= 120] if N == 128
+            else bucket_rows(rows_all, N, B))[:B]
+    seqs = [r["seq"] for r in rows]
+    eager = FoldEngine(cfg, B=B, device="cuda", graphs=False)
+    graph = FoldEngine(cfg, B=B, device="cuda")
+    start = eager.init_state(seqs, seqids=list(range(len(seqs))))
+    eager._advance(start, G)
+    # the graph's pool: what its capture keeps reserved beyond the static
+    # state and the kernel's tables (the allocator's cache emptied around)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved()
+    t_capture = _synced(lambda: graph._advance_graphed(start, G))
+    torch.cuda.empty_cache()
+    kept = sum(v.numel() * v.element_size()
+               for v in (*graph._static.values(),
+                         *graph._tables_out.values()))
+    pool = torch.cuda.memory_reserved() - r0 - kept
+    by_snapshot = pool_bytes(graph)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    want = eager._advance(start, G)
+    eager_rise = torch.cuda.max_memory_allocated() - base
+    got = graph._advance_graphed(start, G)
+    diff = [k for k in want if not torch.equal(want[k], got[k])]
+    if diff:
+        raise AssertionError(f"graph {N}/{K}: states differ in {diff}")
+    del want, got
+    # ms per step from the same start state, in turns
+    ms = {"eager": [], "graph": []}
+    for _ in range(passes):
+        for who in ("eager", "graph", "graph", "eager"):
+            fn = (eager._advance if who == "eager"
+                  else graph._advance_graphed)
+            ms[who].append(_synced(lambda: fn(start, G)) * 1e3 / G)
+    prof = {who: _profiled(lambda: fn(start, G)) for who, fn in
+            (("eager", eager._advance), ("graph", graph._advance_graphed))}
+    # the wrapper's host time on a real step's arguments (the 4th)
+    args = capture_kernel_call(eager, seqs)
+    out = WT.empty_tables(args[2].shape, args[2].device)
+    wrap_alloc = host_us(lambda: WT.wavefront_tables(*args), 200)
+    wrap_fixed = host_us(lambda: WT.wavefront_tables(*args, out=out), 200)
+    # one replay's host time, the device idle before it (replays queued
+    # behind each other wait for the launch queue: that is device time)
+    replay = graph._graphs[("_advance", G)][0]
+    replay_step = min(host_us(replay.replay, 1) for _ in range(3)) / G
+    # the complex candidates at the fixed width CPLX against the longest
+    # complex prefix of each step (the width the eager step trimmed to)
+    st, widths, fixed_ms, trimmed_ms = start, [], 0.0, 0.0
+    for _ in range(8):
+        c = eager.candidates(st)
+        n_on = int((c["cplx"] & c["lag_ok"]).sum((1, 2, 3)).max())
+        widths.append(min(n_on, cfg.CPLX))
+        fixed_ms += graph_ms(lambda: eager.complex_delta(st, c), 5)
+        trimmed_ms += graph_ms(lambda: eager.complex_delta(
+            st, c, width=widths[-1]), 5)
+        st = eager.step(st)
+    rec = dict(
+        N=N, K=K, B=B, G=G, ops_per_step={w: prof[w][1] / G for w in prof},
+        ms_per_step={w: ms[w] for w in ms},
+        median_ms_per_step={w: _median(ms[w]) for w in ms},
+        kernel_ms_per_step={w: prof[w][0] / G for w in prof},
+        busy_share={w: prof[w][0] / (_median(ms[w]) * G) for w in prof},
+        busy_share_profiled={w: prof[w][0] / (prof[w][3] * 1e3) for w in prof},
+        syncs_in_call={w: prof[w][2] for w in prof},
+        capture_s=t_capture, pool_bytes=pool, pool_bytes_snapshot=by_snapshot,
+        eager_peak_rise=eager_rise, static_bytes=kept,
+        wrapper_host_us=dict(allocating=wrap_alloc, fixed_tables=wrap_fixed),
+        replay_host_us_per_step=replay_step,
+        cplx=dict(width=cfg.CPLX, longest_prefix=widths,
+                  fixed_ms=fixed_ms / len(widths),
+                  trimmed_ms=trimmed_ms / len(widths)))
+    log(f"[graph] N={N} K={K} B={B} G={G}: device ops/step eager "
+        f"{rec['ops_per_step']['eager']:.0f}, graph "
+        f"{rec['ops_per_step']['graph']:.0f}; ms/step (median of {passes * 2}"
+        f", in turns) eager {rec['median_ms_per_step']['eager']:.3f}, graph "
+        f"{rec['median_ms_per_step']['graph']:.3f} (all: eager "
+        f"{[round(x, 3) for x in ms['eager']]}, graph "
+        f"{[round(x, 3) for x in ms['graph']]}); kernel ms/step eager "
+        f"{rec['kernel_ms_per_step']['eager']:.3f}, graph "
+        f"{rec['kernel_ms_per_step']['graph']:.3f}; busy share eager "
+        f"{rec['busy_share']['eager']:.1%}, graph {rec['busy_share']['graph']:.1%}"
+        f" (profiled wall: {rec['busy_share_profiled']['eager']:.1%}, "
+        f"{rec['busy_share_profiled']['graph']:.1%}); host syncs in a call: "
+        f"eager {rec['syncs_in_call']['eager']}, graph "
+        f"{rec['syncs_in_call']['graph']}")
+    log(f"[graph] N={N} K={K}: capture (warm-up round included) "
+        f"{t_capture:.3f} s; graph pool {pool / MiB:.1f} MiB (reserved, less "
+        f"the {kept / MiB:.1f} MiB of static state and kernel tables; "
+        f"segments of the pool {by_snapshot / MiB:.1f} MiB); eager "
+        f"_advance's peak rise {eager_rise / MiB:.1f} MiB; wrapper host "
+        f"{wrap_alloc:.1f} us/call allocating, {wrap_fixed:.1f} us/call into "
+        f"fixed tables, none in a replay (replay host {replay_step:.1f} "
+        f"us/step)")
+    log(f"[graph] N={N} K={K}: complex candidates at CPLX={cfg.CPLX}, device "
+        f"{rec['cplx']['fixed_ms']:.3f} ms/step against "
+        f"{rec['cplx']['trimmed_ms']:.3f} at the longest prefix (widths "
+        f"{widths} over the first {len(widths)} steps)")
+    return rec
+
+
+def phase_graph(rows_all, passes):
+    out = []
+    for tag, N, K in GRAPH_CELLS:
+        out.append(dict(cell=tag, **graph_cell(rows_all, N, K, passes)))
+        torch.cuda.empty_cache()
+    return out
+
+
 def _abba(rounds):
     for _ in range(rounds):
         yield from ("this", "other", "other", "this")
@@ -734,7 +959,8 @@ def phase_swap(rows_all, against, rounds):
 
     rows = [r for r in rows_all if len(r["seq"]) <= 120][:64]
     seqs = [r["seq"] for r in rows]
-    eng = FoldEngine(EngineConfig(**HEADLINE), B=16, device="cuda")
+    eng = FoldEngine(EngineConfig(**HEADLINE), B=16, device="cuda",
+                     graphs=False)
     secs = {"this": [], "other": []}
     try:
         for v in ("this", "other", *_abba(rounds)):
@@ -907,6 +1133,11 @@ def main(argv=None):
             phase_swap(rows, args.against, args.passes)
         elif ph == "mfe":
             phase_mfe(rows, args.passes)
+        elif ph == "graph":
+            recs = phase_graph(rows, args.passes)
+            if args.out:
+                with open(os.path.join(args.out, "graph.json"), "w") as fh:
+                    json.dump(recs, fh, indent=1)
         else:
             raise SystemExit(f"measure: unknown phase {ph}")
         log(f"[{ph}] took {time.perf_counter() - t0:.1f} s")
