@@ -49,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from rafft_tpu_torch import obs
 from rafft_tpu_torch.energy.params import encode_sequence
 from rafft_tpu_torch.scan.correlate import correlate_fft
 from rafft_tpu_torch.scan.encode import weight_matrix
@@ -75,6 +76,14 @@ FLAG_STEPLIM = 32   # fold hit the step safety limit unfinished
 FLAG_NAMES = {FLAG_VWINDOW: "v_window", FLAG_RSLOTS: "r_slots",
               FLAG_SEEN: "seen_set", FLAG_HASH: "hash_check",
               FLAG_CPLX: "cplx_budget", FLAG_STEPLIM: "step_limit"}
+
+# the stages of a fold step, as its stage clock names them (obs):
+# swap (continuous batching, _advance only), loop analysis and regions,
+# the wavefront tables and the lags they rank, the candidates' dE, the
+# complex candidates' full evaluation, the combination enumeration, and
+# the pool with the survivors' rebuild
+STAGES = ("swap", "loops", "wavefront", "delta", "complex", "enumerate",
+          "pool")
 
 M_NORM, M_FIRST, M_DONE = 0, 1, 2
 INFE = 1 << 30
@@ -445,44 +454,53 @@ class FoldEngine:
     same steps eagerly, op by op.  The CPU has no graphs."""
 
     def __init__(self, cfg: EngineConfig, B: int, device="cuda", graphs=None):
-        refusal = engine_refusal(cfg)
-        if refusal is not None:
-            raise ValueError(refusal)
-        self.cfg = cfg
-        self.B = B
-        self.device = torch.device(device)
-        if graphs is None:
-            graphs = self.device.type == "cuda"
-        if graphs and self.device.type != "cuda":
-            raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
-        self.graphs = bool(graphs)
-        self.dp = device_params(cfg.temp, cfg.N, self.device)
-        self.W = weight_matrix(cfg.gc_wei, cfg.au_wei, cfg.gu_wei)
-        self.integral = _weights_integral(cfg)
-        # the kernel's lookup tables and the FFT correlation's weights,
-        # uploaded once (not per step)
-        self.wtabs = small_tables(self.dp, self.W, self.device)
-        self.fft_W = torch.as_tensor(np.asarray(self.W, np.float32),
-                                     device=self.device)
-        # the kernel's seven output tables, allocated at the first step;
-        # the layout contract is checked once, on that step
-        self._tables_out = None
-        self._layout_checked = False
-        # CUDA graphs: one per (kind, G), on the static state buffers,
-        # all in one private memory pool (see _graphed)
-        self._graphs = {}
-        self._static = None
-        self._pool = None
-        # Zobrist coefficients: the same draws as fold_jax, so hashes and
-        # seen-sets equal the JAX engine's
-        rng = np.random.default_rng(0xA5F7)
-        z1 = rng.integers(1, 2**32 - 1, cfg.N + 1, dtype=np.uint64).astype(np.uint32)
-        z2 = rng.integers(1, 2**32 - 1, cfg.N + 1, dtype=np.uint64).astype(np.uint32)
-        dev = self.device
-        self.Z1 = torch.as_tensor(z1.astype(np.int64), device=dev)
-        self.Z2 = torch.as_tensor(z2.astype(np.int64), device=dev)
-        self.Z1i = torch.as_tensor(z1.view(np.int32), device=dev)
-        self.Z2i = torch.as_tensor(z2.view(np.int32), device=dev)
+        with obs.span("engine.build"):
+            refusal = engine_refusal(cfg)
+            if refusal is not None:
+                raise ValueError(refusal)
+            self.cfg = cfg
+            self.B = B
+            self.device = torch.device(device)
+            if graphs is None:
+                graphs = self.device.type == "cuda"
+            if graphs and self.device.type != "cuda":
+                raise ValueError(
+                    f"CUDA graphs need a CUDA device, not {device}")
+            self.graphs = bool(graphs)
+            self.dp = device_params(cfg.temp, cfg.N, self.device)
+            self.W = weight_matrix(cfg.gc_wei, cfg.au_wei, cfg.gu_wei)
+            self.integral = _weights_integral(cfg)
+            # the kernel's lookup tables and the FFT correlation's weights,
+            # uploaded once (not per step)
+            self.wtabs = small_tables(self.dp, self.W, self.device)
+            self.fft_W = torch.as_tensor(np.asarray(self.W, np.float32),
+                                         device=self.device)
+            # the kernel's seven output tables, allocated at the first step;
+            # the layout contract is checked once, on that step
+            self._tables_out = None
+            self._layout_checked = False
+            # CUDA graphs: one per (kind, G), on the static state buffers,
+            # all in one private memory pool (see _graphed)
+            self._graphs = {}
+            self._static = None
+            self._pool = None
+            # Zobrist coefficients: the same draws as fold_jax, so hashes and
+            # seen-sets equal the JAX engine's
+            rng = np.random.default_rng(0xA5F7)
+            z1 = rng.integers(1, 2**32 - 1, cfg.N + 1,
+                              dtype=np.uint64).astype(np.uint32)
+            z2 = rng.integers(1, 2**32 - 1, cfg.N + 1,
+                              dtype=np.uint64).astype(np.uint32)
+            dev = self.device
+            self.Z1 = torch.as_tensor(z1.astype(np.int64), device=dev)
+            self.Z2 = torch.as_tensor(z2.astype(np.int64), device=dev)
+            self.Z1i = torch.as_tensor(z1.view(np.int32), device=dev)
+            self.Z2i = torch.as_tensor(z2.view(np.int32), device=dev)
+            # the step's stage clock (a capture puts its own in its place),
+            # and the stage clocks of graph replays that no host read has
+            # waited for yet
+            self._stages = obs.HostStages()
+            self._pending = {}
 
     # ---------------- state
     def _t(self, x, dtype=None):
@@ -583,12 +601,17 @@ class FoldEngine:
         """The first stages of a step: loop analysis, regions, the
         wavefront tables and the lags they rank, and every candidate's
         exact incremental dE.  Returns their tensors by name (step reads
-        them; tools/debug_delta.py holds the dE to the integer oracle)."""
+        them; tools/debug_delta.py holds the dE to the integer oracle).
+        Marks the stages loops, wavefront and delta (obs), and ends the
+        last unless a caller's stage was open."""
         cfg, dp = self.cfg, self.dp
         K, N = cfg.K, cfg.N
         B = self.B
         codes, n, pt = state["codes"], state["n"], state["pt"]
         active, rorder = state["active"], state["rorder"]
+        clock = self._stages
+        own = clock.idle
+        clock.to("loops")
 
         keys = [_kmer_keys(codes, k) for k in (5, 6, 8)]
 
@@ -599,6 +622,7 @@ class FoldEngine:
         rcodes = torch.where(rpos < N, take(codes, rpos.clamp(0, N - 1)), 0)
         rposc = rpos.clamp(0, N).long()
         z1row, z2row = self.Z1i[rposc], self.Z2i[rposc]
+        clock.to("wavefront")
 
         # ---- correlation + window slide: the wavefront tables; for
         # non-integral weights the FFT correlation ranks the lags
@@ -625,9 +649,12 @@ class FoldEngine:
               for k in ("max_nb", "max_i", "max_j", "best_sE")}
         hd1 = tabs["hd1"].gather(-1, li).long() & MASK32
         hd2 = tabs["hd2"].gather(-1, li).long() & MASK32
+        clock.to("delta")
 
         delta, cplx, has, p0 = _candidate_delta(
             cfg, dp, codes, n, keys, pt, loops, rorder, rpos, ws)
+        if own:
+            clock.to(None)
         return dict(rpos=rpos, rloc=rloc, rslot=rslot, mlen=mlen,
                     lag_ok=lag_ok, ws=ws, hd1=hd1, hd2=hd2, delta=delta,
                     cplx=cplx, has=has, p0=p0)
@@ -678,7 +705,10 @@ class FoldEngine:
         return delta_flat.view(B, K, R, M), resolved.view(B, K, R, M)
 
     def step(self, state):
-        """One fold step of every lane (fold_jax._seq_step, batched)."""
+        """One fold step of every lane (fold_jax._seq_step, batched).
+        Marks its stages on the engine's stage clock (STAGES but swap) and
+        counts its round there; ends its last stage unless the caller's
+        stage was open (_advance's swap)."""
         cfg, dev = self.cfg, self.device
         K, R, M, V, S = cfg.K, cfg.R, cfg.M, cfg.V, cfg.S
         B = self.B
@@ -686,15 +716,20 @@ class FoldEngine:
         pt = state["pt"]
         energy, active, rorder = state["energy"], state["active"], state["rorder"]
         done = state["done"]
+        clock = self._stages
+        own = clock.idle
+        clock.to("loops")
 
         c = self.candidates(state)
         rpos, rloc, rslot, mlen = c["rpos"], c["rloc"], c["rslot"], c["mlen"]
         lag_ok, ws, hd1, hd2 = c["lag_ok"], c["ws"], c["hd1"], c["hd2"]
         cplx, has, p0 = c["cplx"], c["has"], c["p0"]
         m_ = mlen[..., None]
+        clock.to("complex")
 
         delta, resolved = self.complex_delta(state, c)
         dropped = (cplx & lag_ok & ~resolved).sum((1, 2, 3), dtype=i32)
+        clock.to("enumerate")
 
         # ---- acceptance (reference float32 semantics)
         e32 = energy.float()[:, :, None, None]
@@ -874,6 +909,7 @@ class FoldEngine:
         bits = (_bit((mode == M_NORM) & ~done, FLAG_VWINDOW)
                 | _bit(susr, FLAG_RSLOTS) | _bit(suss, FLAG_SEEN))
 
+        clock.to("pool")
         # ---- pool (new before old on ties) and truncate to K
         pool_E = torch.cat([torch.where(bm["valid"], bm["E"], INFE),
                             torch.where(active, energy, INFE)], 1)
@@ -932,6 +968,9 @@ class FoldEngine:
             done=done | unchanged,
             cplx_dropped=state["cplx_dropped"] + torch.where(keep, dropped, 0),
             enum_suspect=state["enum_suspect"] | torch.where(keep, bits, 0))
+        clock.round()
+        if own:
+            clock.to(None)
         return st
 
     @staticmethod
@@ -977,13 +1016,19 @@ class FoldEngine:
         (fold_jax._advance_impl).  No host read: a round in which no lane
         can make progress leaves the whole state as it was, as the JAX
         while_loop stops there.  The test is batch-wide, as that loop's
-        condition is: while any lane is runnable, every lane steps."""
+        condition is: while any lane is runnable, every lane steps.  The
+        stage swap (obs) holds the gate, the swaps and the merge."""
+        clock = self._stages
         for _ in range(G):
+            clock.to("swap")
             go = self._runnable(state).any()
             nxt = self.step(self._swap(state))
+            clock.to("swap")
             nxt["lane_steps"] = nxt["lane_steps"] + (~nxt["done"]).to(torch.int32)
             state = {k: torch.where(go, nxt[k], v) for k, v in state.items()}
-        return self._swap(state)
+        state = self._swap(state)
+        clock.to(None)
+        return state
 
     def _steps(self, state, G: int):
         """G fold steps (fold_jax._steps_impl).  A step of a lane that is
@@ -1011,56 +1056,86 @@ class FoldEngine:
         in it between replays (its outputs are copied into the static
         buffers), and the engine's graphs never run at the same time.
         A capture that fails raises; nothing falls back to the eager
-        path."""
-        if self._static is None:
-            self._static = {k: v.clone() for k, v in state.items()}
-        st = self._static
-        if state.keys() != st.keys():
-            raise ValueError("the state's keys differ from the graph's")
-        for k, v in state.items():
-            if v is not st[k]:
-                st[k].copy_(v)
+        path.  While the profiler records, the replay's stage clock waits
+        for the next host read (_read_stages)."""
+        with obs.span("engine.copy_in"):
+            if self._static is None:
+                self._static = {k: v.clone() for k, v in state.items()}
+            st = self._static
+            if state.keys() != st.keys():
+                raise ValueError("the state's keys differ from the graph's")
+            for k, v in state.items():
+                if v is not st[k]:
+                    st[k].copy_(v)
         key = (body.__name__, G)
         if key not in self._graphs:
             self._graphs[key] = self._capture(body, G)
-        graph, launches = self._graphs[key]
-        graph.replay()
+        graph, launches, stages = self._graphs[key]
+        with obs.span("engine.launch"):
+            graph.replay()
         WT.count_replay(launches)
+        if obs.recording():
+            self._pending[key] = stages
         return dict(st)
 
     def _capture(self, body, G):
         """Warm up, then capture body(static state, G) and its copy back
-        into the static buffers.  Returns (graph, kernel launches in it)."""
+        into the static buffers.  Returns (graph, kernel launches in it,
+        its stage clock: obs.GraphStages, whose timing events the graph
+        records at every replay, whether or not the profiler records; the
+        copy back is timed with the body's last stage, the final swap or
+        the pool)."""
         st = self._static
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            body(dict(st), 1)
-        cur.wait_stream(side)
+        with obs.span("engine.warmup"):
+            cur = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                body(dict(st), 1)
+            cur.wait_stream(side)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         before = WT.CAPTURED
-        with torch.cuda.graph(graph, pool=self._pool):
-            out = body(dict(st), G)
-            for k, v in st.items():
-                v.copy_(out[k])
-            del out      # nothing of the capture stays live in the pool
-        return graph, WT.CAPTURED - before
+        host, stages = self._stages, obs.GraphStages()
+        self._stages = stages
+        try:
+            with obs.span("engine.capture"), \
+                    torch.cuda.graph(graph, pool=self._pool):
+                out = body(dict(st), G)
+                stages.resume()
+                for k, v in st.items():
+                    v.copy_(out[k])
+                stages.to(None)
+                del out      # nothing of the capture stays live in the pool
+        finally:
+            self._stages = host
+        return graph, WT.CAPTURED - before, stages
+
+    def _read_stages(self):
+        """After a host read that waited for the replays since the last
+        one: add their stages' device ms to the trace (obs), while the
+        profiler records."""
+        if self._pending:
+            pending, self._pending = self._pending, {}
+            if obs.recording():
+                for stages in pending.values():
+                    stages.read()
 
     def _advance_graphed(self, state, G: int):
         """_advance(state, G) as one CUDA graph replay (see _graphed)."""
         return self._graphed(self._advance, state, G)
 
     def _drain_load(self, state, clear, load, codes_new, n_new, sid_new):
-        st = dict(state)
-        st["out_valid"] = st["out_valid"] & ~clear
-        st["next_codes"] = torch.where(load[:, None], codes_new, st["next_codes"])
-        st["next_n"] = torch.where(load, n_new, st["next_n"])
-        st["next_seqid"] = torch.where(load, sid_new, st["next_seqid"])
-        st["next_avail"] = st["next_avail"] | load
-        return st
+        with obs.span("stream.load"):
+            st = dict(state)
+            st["out_valid"] = st["out_valid"] & ~clear
+            st["next_codes"] = torch.where(load[:, None], codes_new,
+                                           st["next_codes"])
+            st["next_n"] = torch.where(load, n_new, st["next_n"])
+            st["next_seqid"] = torch.where(load, sid_new, st["next_seqid"])
+            st["next_avail"] = st["next_avail"] | load
+            return st
 
     _OUT_KEYS = ("out_pt", "out_E", "out_act", "out_n", "out_seqid",
                  "out_done", "out_flag", "out_valid", "done", "seqid",
@@ -1078,8 +1153,15 @@ class FoldEngine:
         CUDA graph replay on the engine's static state buffers, which
         the host's updates are copied into; else every state update
         builds new tensors and drops the old ones at once (what buffer
-        donation buys the JAX engine)."""
+        donation buys the JAX engine).
+
+        Traced (obs): the spans engine.rows (a fold's rows),
+        stream.encode and stream.load of the host's drain, and the
+        counters stream.replays, stream.rounds, stream.folds, and after
+        each read stream.live_lanes (lanes folding a sequence, neither
+        done nor at the step limit) of stream.lanes."""
         cfg, B = self.cfg, self.B
+        LIM = 2 * cfg.max_steps
         nseq = len(seqs)
         state = self.init_state(seqs[:B], seqids=list(range(min(B, nseq))))
         nxt = min(B, nseq)
@@ -1093,7 +1175,8 @@ class FoldEngine:
                 if nxt < nseq:
                     placed[b], sid[b], load[b] = seqs[nxt], nxt, True
                     nxt += 1
-            codes, n = self._encode(placed, B)
+            with obs.span("stream.encode"):
+                codes, n = self._encode(placed, B)
             return load, codes, n, sid
 
         load, codes_new, n_new, sid_new = loader(range(B))
@@ -1106,10 +1189,18 @@ class FoldEngine:
             state = advance(state, G)
             (o_pt, o_E, o_act, o_n, o_sid, o_done, o_flag, o_valid,
              l_done, l_sid, l_steps) = self._fetch(state, self._OUT_KEYS)
+            if obs.recording():
+                obs.count("stream.replays")
+                obs.count("stream.rounds", G)
+                live = (l_sid >= 0) & ~l_done & (l_steps < LIM)
+                obs.count("stream.live_lanes", int(live.sum()))
+                obs.count("stream.lanes", B)
             fresh = np.where(o_valid)[0]
             clear = np.zeros(B, bool)
             for b in fresh:
-                rows = self._rows_from(o_pt[b], o_E[b], o_act[b], o_n[b])
+                with obs.span("engine.rows"):
+                    rows = self._rows_from(o_pt[b], o_E[b], o_act[b], o_n[b])
+                obs.count("stream.folds")
                 yield int(o_sid[b]), rows, int(o_flag[b]) | (
                     0 if o_done[b] else FLAG_STEPLIM)
                 emitted += 1
@@ -1122,7 +1213,6 @@ class FoldEngine:
             elif len(fresh) == 0:
                 # end-game: no banked results and no shadows left —
                 # remaining folds finish in live lanes
-                LIM = 2 * cfg.max_steps
                 live = (l_sid >= 0) & (l_done | (l_steps >= LIM))
                 if not live.any():
                     continue
@@ -1131,7 +1221,10 @@ class FoldEngine:
                             "enum_suspect"))
                 kill = np.zeros(B, bool)
                 for b in np.where(live)[0]:
-                    rows = self._rows_from(pt_l[b], E_l[b], act_l[b], n_l[b])
+                    with obs.span("engine.rows"):
+                        rows = self._rows_from(pt_l[b], E_l[b], act_l[b],
+                                               n_l[b])
+                    obs.count("stream.folds")
                     yield (int(l_sid[b]), rows,
                            int(es_l[b]) | (FLAG_CPLX if cd_l[b] > 0 else 0)
                            | (0 if l_done[b] else FLAG_STEPLIM))
@@ -1144,13 +1237,15 @@ class FoldEngine:
                                      torch.zeros_like(state["n"]))
                 state["seqid"] = torch.where(killt, -1, state["seqid"])
 
-    @staticmethod
-    def _fetch(state, keys):
+    def _fetch(self, state, keys):
         """The int32 and bool tensors `keys` of `state` as numpy arrays, in
-        one device-to-host copy (one host read)."""
-        ts = [state[k] for k in keys]
-        flat = torch.cat([t.reshape(-1).to(torch.int32) for t in ts])
-        flat = flat.cpu().numpy()
+        one device-to-host copy (one host read), after which the replays'
+        stage clocks are read."""
+        with obs.span("engine.read"):
+            ts = [state[k] for k in keys]
+            flat = torch.cat([t.reshape(-1).to(torch.int32) for t in ts])
+            flat = flat.cpu().numpy()
+            self._read_stages()
         out, at = [], 0
         for t in ts:
             x = flat[at: at + t.numel()].reshape(tuple(t.shape))
@@ -1178,7 +1273,8 @@ class FoldEngine:
         engine's static buffers (the next run overwrites them).  A beam
         is [(dot_bracket, energy_kcal)] best-first, or with
         structures=True a list of Structure whose pair_list and
-        node_list are filled (_structures)."""
+        node_list are filled (_structures).  Traced (obs): the read of
+        `done` is the span engine.read."""
         read = self._structures if structures else self._beams
         state = self.init_state(seqs)
         traj = []
@@ -1187,7 +1283,10 @@ class FoldEngine:
         G = 4 if self.graphs and not collect_traj else 1
         steps = 0
         while steps < self.cfg.max_steps:
-            if bool(state["done"].all()):
+            with obs.span("engine.read"):
+                finished = bool(state["done"].all())
+                self._read_stages()
+            if finished:
                 break
             if collect_traj:
                 traj.append(read(state, len(seqs)))
@@ -1196,6 +1295,7 @@ class FoldEngine:
                      else self._steps(state, g))
             steps += g
         beams = read(state, len(seqs))
+        self._read_stages()
         if collect_traj:
             return beams, traj, state
         return beams, state
@@ -1216,29 +1316,32 @@ class FoldEngine:
           fold_cpu's node_list order), each its unpaired member
           positions ascending as an int64 array;
         - energy and str_struct as in _beams."""
-        cfg, B = self.cfg, self.B
-        K, N = cfg.K, cfg.N
-        pt, n, rorder = state["pt"], state["n"], state["rorder"]
-        loops = analyze_pt(self.dp, state["codes"][:, None].expand(B, K, N),
-                           pt, n[:, None].expand(B, K))
-        rpos, _, _, mlen = _regions(cfg, pt, loops["enclose"], rorder, n)
-        pt, E, act, n, ror, rpos, mlen = (
-            x.cpu().numpy() for x in (pt, state["energy"], state["active"], n,
-                                      rorder, rpos, mlen))
-        out = []
-        for b in range(nseq):
-            beam = []
-            for k in np.flatnonzero(act[b]):
-                row = pt[b, k, : n[b]]
-                ii = np.flatnonzero(row > np.arange(n[b]))
-                pairs = [(int(i), int(row[i])) for i in ii]
-                nodes = [rpos[b, k, r, : mlen[b, k, r]].astype(np.int64)
-                         for r in np.flatnonzero(ror[b, k] > -2)]
-                beam.append(Structure(nodes, pairs,
-                                      float(np.float32(int(E[b, k]) / 100.0)),
-                                      dot_bracket(pairs, int(n[b]))))
-            out.append(beam)
-        return out
+        with obs.span("engine.structures"):
+            cfg, B = self.cfg, self.B
+            K, N = cfg.K, cfg.N
+            pt, n, rorder = state["pt"], state["n"], state["rorder"]
+            loops = analyze_pt(self.dp,
+                               state["codes"][:, None].expand(B, K, N), pt,
+                               n[:, None].expand(B, K))
+            rpos, _, _, mlen = _regions(cfg, pt, loops["enclose"], rorder, n)
+            pt, E, act, n, ror, rpos, mlen = (
+                x.cpu().numpy() for x in (pt, state["energy"],
+                                          state["active"], n, rorder, rpos,
+                                          mlen))
+            out = []
+            for b in range(nseq):
+                beam = []
+                for k in np.flatnonzero(act[b]):
+                    row = pt[b, k, : n[b]]
+                    ii = np.flatnonzero(row > np.arange(n[b]))
+                    pairs = [(int(i), int(row[i])) for i in ii]
+                    nodes = [rpos[b, k, r, : mlen[b, k, r]].astype(np.int64)
+                             for r in np.flatnonzero(ror[b, k] > -2)]
+                    beam.append(Structure(
+                        nodes, pairs, float(np.float32(int(E[b, k]) / 100.0)),
+                        dot_bracket(pairs, int(n[b]))))
+                out.append(beam)
+            return out
 
 
 def fold_one_config(n, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
@@ -1343,19 +1446,20 @@ def fold(sequence, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
       fold_cpu's order, each an int64 array of its unpaired positions
       ascending."""
     global REFOLDS
-    args = (nb_mode, max_stack, max_branch, min_hp, min_nrj, traj, temp,
-            gc_wei, au_wei, gu_wei)
-    reason = fold_refusal(sequence, nb_mode, max_stack, fold_one_config(
-        len(sequence), nb_mode, max_stack, max_branch, min_hp, min_nrj, temp,
-        gc_wei, au_wei, gu_wei))
-    if reason is None:
-        out, flag = _fold_one(sequence, *args, device, structures=True)
-        if not flag:
-            return out
-        reason = f"the engine flagged the fold ({flag_names(flag)})"
-    from rafft_tpu_torch.engine import fold_cpu
+    with obs.span("fold.call"):
+        args = (nb_mode, max_stack, max_branch, min_hp, min_nrj, traj, temp,
+                gc_wei, au_wei, gu_wei)
+        reason = fold_refusal(sequence, nb_mode, max_stack, fold_one_config(
+            len(sequence), nb_mode, max_stack, max_branch, min_hp, min_nrj,
+            temp, gc_wei, au_wei, gu_wei))
+        if reason is None:
+            out, flag = _fold_one(sequence, *args, device, structures=True)
+            if not flag:
+                return out
+            reason = f"the engine flagged the fold ({flag_names(flag)})"
+        from rafft_tpu_torch.engine import fold_cpu
 
-    _LOG.info("fold: a %d-nt fold goes to fold_cpu: %s", len(sequence),
-              reason)
-    REFOLDS += 1
-    return fold_cpu.fold(sequence, *args)
+        _LOG.info("fold: a %d-nt fold goes to fold_cpu: %s", len(sequence),
+                  reason)
+        REFOLDS += 1
+        return fold_cpu.fold(sequence, *args)

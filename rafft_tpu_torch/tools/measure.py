@@ -1,6 +1,6 @@
 """Measure the port's fold path on one CUDA card, layer by layer.
 
-    python -m rafft_tpu_torch.tools.measure [--phases loops,headline,syncs,profile,kernel,walk,mfe,graph]
+    python -m rafft_tpu_torch.tools.measure [--phases loops,headline,syncs,profile,kernel,walk,mfe,graph,obs,tail]
                                             [--passes 5] [--out DIR]
                                             [--max-stack 50] [--profile-buckets 256,512,1024]
 
@@ -26,14 +26,15 @@ Phases (each prints lines tagged with its name):
              wall spent in FoldEngine._rows_from;
   profile  - per bucket (--profile-buckets, default 256/512/1024, at
              --max-stack K, default 50, the sweep's configuration),
-             torch.profiler over run_stream after a warm-up, with a range
-             around each stage of the step.  Before it, one unprofiled fold
-             with every stage wrapped gives the fold's peak, the state's
-             bytes and each stage's largest rise of the peak over what was
-             allocated at its entry.
+             torch.profiler over run_stream after a warm-up; the step
+             marks its stages itself (the ranges rafft.stage.<name> of
+             rafft_tpu_torch/obs.py).  Before it, one unprofiled fold
+             with every function of STAGES wrapped gives the fold's peak,
+             the state's bytes and each function's largest rise of the
+             peak over what was allocated at its entry.
              From the Chrome trace: device ops per step, kernel ms, and
              per stage the kernel ms of the ops launched inside its range
-             (nested stages count in both) and its host ms.  Busy share is
+             and its host ms.  Busy share is
              printed twice: kernel ms over the profiled wall (a lower
              bound: the profiler slows the host) and over the unprofiled
              wall of the same rows.  Per-bucket key_averages tables go to
@@ -71,7 +72,7 @@ Phases (each prints lines tagged with its name):
              (SYNC_EVENTS) in one call (torch.profiler); ms per step
              (host clock between synchronisations around one call of 4
              rounds from that start, `--passes` rounds of eager, graph,
-             graph, eager); busy share; the graph pool's bytes and the
+             graph, eager); the graph pool's bytes and the
              eager call's peak rise; the wavefront wrapper's host time per
              call, allocating and into fixed tables, and the replay's host
              time per step (one replay, the device idle before it); the
@@ -79,6 +80,28 @@ Phases (each prints lines tagged with its name):
              graph_ms) at the fixed width CPLX against the longest complex
              prefix of each of the first 8 steps (the width the step used
              to trim to);
+  obs      - the cost of the program's own trace (rafft_tpu_torch/obs.py):
+             host ns per span with the profiler off and us per span with
+             it on; at the headline configuration (bucket_config(128,
+             100, 50, 1000), B=16, G=4) the device ms of one graph replay
+             captured with the stage clock's timing events and of one
+             captured without them (CUDA events around 20 replays,
+             `--passes` rounds of without, with, with, without; the two
+             graphs' states must be equal); the host ms until replay()
+             returns, the device idle before it, with the profiler off, on
+             for the CPU and on for the CPU and CUDA (the span
+             engine.launch); and the host ms of reading a replay's stage
+             clock with the profiler on, beside the sum of its stages'
+             device ms;
+  tail     - the public fold's slow calls: 100 calls of
+             fold(traj=True) at -ms 20 (the CLI's -n 100 --max_branch
+             1000) on journal rows of 65-128 nt in a seeded order, after
+             two warm-up calls, under a CPU-only torch.profiler; each
+             call's wall (host clock to a synchronisation) and its time in
+             each of the program's spans (obs.snapshot() after each call;
+             the step's stage spans, inside engine.warmup, left out),
+             fold.call's self time as unspanned; the slowest tenth of
+             calls against the others, span by span;
   mfe      - the batched MFE DP (mfe/mfe_torch.py) per MFE bucket (32 to
              1024 on a full batch of the bucket's first journal rows at
              bench_mfe's batch size, and 4096 on the longer 23S rRNA,
@@ -113,7 +136,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 JOURNAL = os.path.join(ROOT, "benchmarks", "artifacts", "beams_100n50.jsonl.gz")
 BUCKETS = (128, 256, 512, 1024, 2048, 4096)
-# stages of FoldEngine.step, wrapped from outside in the profile phase
+# functions FoldEngine.step calls, each wrapped from outside for its rise
+# of the peak (_stage_peaks); the profile phase reads the step's own stage
+# ranges
 STAGES = ("_candidate_delta", "_children", "eval_pt", "analyze_pt", "_regions",
           "_top_lags", "_member", "_first_occurrence", "_combo_pt",
           "wavefront_tables")
@@ -615,9 +640,13 @@ def _stage_peaks(eng, rows):
     return rise, max(frames[0], torch.cuda.max_memory_allocated()), state_bytes
 
 
+STAGE_RANGE = "rafft.stage."
+
+
 def _trace_stats(path):
-    """Kernel events and stage ranges of a Chrome trace: total kernel ms,
-    device op count, {stage: (kernel ms, host ms, calls)}."""
+    """Kernel events and the step's stage ranges (rafft.stage.<name>) of
+    a Chrome trace: total kernel ms, device op count, {stage: (kernel ms,
+    host ms, calls)}."""
     with open(path) as fh:
         ev = json.load(fh)["traceEvents"]
     kern = [e for e in ev if e.get("cat") in ("kernel", "gpu_memcpy",
@@ -628,14 +657,15 @@ def _trace_stats(path):
     k_ts = np.array([launch.get(e["args"].get("correlation"), -1.0)
                      for e in kern])
     k_dur = np.array([e["dur"] for e in kern], dtype=np.float64)
+    ranges = {}
+    for e in ev:
+        if e.get("cat") == "user_annotation" \
+                and e["name"].startswith(STAGE_RANGE):
+            ranges.setdefault(e["name"][len(STAGE_RANGE):], []).append(
+                (e["ts"], e["ts"] + e["dur"]))
     stages = {}
-    for name in STAGES:
-        rng = sorted((e["ts"], e["ts"] + e["dur"]) for e in ev
-                     if e.get("cat") == "user_annotation"
-                     and e["name"] == f"stage:{name}")
-        if not rng:
-            continue
-        lo, hi = np.array(rng).T
+    for name, rng in ranges.items():
+        lo, hi = np.array(sorted(rng)).T
         at = np.searchsorted(lo, k_ts, side="right") - 1
         inside = (at >= 0) & (k_ts < hi[np.clip(at, 0, None)])
         stages[name] = (k_dur[inside].sum() / 1e3, (hi - lo).sum() / 1e3,
@@ -644,17 +674,9 @@ def _trace_stats(path):
 
 
 def phase_profile(rows_all, out_dir, K=K_BEAM, buckets=(256, 512, 1024)):
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
-    from rafft_tpu_torch.engine import fold_torch as FT
     from rafft_tpu_torch.engine import wavefront as WT
-    orig = {name: getattr(FT, name) for name in STAGES}
-
-    def ranged(name, fn):
-        def wrapped(*a, **kw):
-            with record_function(f"stage:{name}"):
-                return fn(*a, **kw)
-        return wrapped
 
     for N in buckets:
         rows = bucket_rows(rows_all, N, PROFILE_ROWS[N])
@@ -663,15 +685,9 @@ def phase_profile(rows_all, out_dir, K=K_BEAM, buckets=(256, 512, 1024)):
         wall = _fold(eng, rows)
         rise, peak, state_bytes = _stage_peaks(eng, rows)
         WT.LAUNCHES = 0
-        for name, fn in orig.items():
-            setattr(FT, name, ranged(name, fn))
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                pwall = _fold(eng, rows)
-        finally:
-            for name, fn in orig.items():
-                setattr(FT, name, fn)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pwall = _fold(eng, rows)
         steps = WT.LAUNCHES
         build = os.path.join(ROOT, "build")
         os.makedirs(build, exist_ok=True)
@@ -692,8 +708,10 @@ def phase_profile(rows_all, out_dir, K=K_BEAM, buckets=(256, 512, 1024)):
             f" MiB")
         for name, (dms, hms, calls) in sorted(stages.items(),
                                               key=lambda kv: -kv[1][0]):
-            log(f"[profile] N={N} {name}: kernel {dms:.1f} ms, host "
-                f"{hms:.1f} ms, {calls} calls; peak rise "
+            log(f"[profile] N={N} stage {name}: kernel {dms:.1f} ms, host "
+                f"{hms:.1f} ms, {calls} calls")
+        for name in STAGES:
+            log(f"[profile] N={N} {name}: peak rise "
                 f"{rise.get(name, 0) / MiB:.1f} MiB")
 
 
@@ -707,17 +725,14 @@ SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 
 def _profiled(fn):
     """fn() under torch.profiler: (kernel ms, device ops, host events
-    inside fn that wait for the device (SYNC_EVENTS), profiled wall
-    seconds)."""
+    inside fn that wait for the device (SYNC_EVENTS))."""
     from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         with record_function("measured_call"):
             fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     build = os.path.join(ROOT, "build")
     os.makedirs(build, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
@@ -731,7 +746,7 @@ def _profiled(fn):
     lo, hi = span["ts"], span["ts"] + span["dur"]
     syncs = sum(e.get("name") in SYNC_EVENTS and lo <= e["ts"] <= hi
                 for e in ev)
-    return kms, nops, syncs, wall
+    return kms, nops, syncs
 
 
 def _synced(fn):
@@ -851,8 +866,6 @@ def graph_cell(rows_all, N, K, passes, G=GRAPH_G):
         ms_per_step={w: ms[w] for w in ms},
         median_ms_per_step={w: _median(ms[w]) for w in ms},
         kernel_ms_per_step={w: prof[w][0] / G for w in prof},
-        busy_share={w: prof[w][0] / (_median(ms[w]) * G) for w in prof},
-        busy_share_profiled={w: prof[w][0] / (prof[w][3] * 1e3) for w in prof},
         syncs_in_call={w: prof[w][2] for w in prof},
         capture_s=t_capture, pool_bytes=pool, pool_bytes_snapshot=by_snapshot,
         eager_peak_rise=eager_rise, static_bytes=kept,
@@ -869,10 +882,7 @@ def graph_cell(rows_all, N, K, passes, G=GRAPH_G):
         f"{[round(x, 3) for x in ms['eager']]}, graph "
         f"{[round(x, 3) for x in ms['graph']]}); kernel ms/step eager "
         f"{rec['kernel_ms_per_step']['eager']:.3f}, graph "
-        f"{rec['kernel_ms_per_step']['graph']:.3f}; busy share eager "
-        f"{rec['busy_share']['eager']:.1%}, graph {rec['busy_share']['graph']:.1%}"
-        f" (profiled wall: {rec['busy_share_profiled']['eager']:.1%}, "
-        f"{rec['busy_share_profiled']['graph']:.1%}); host syncs in a call: "
+        f"{rec['kernel_ms_per_step']['graph']:.3f}; host syncs in a call: "
         f"eager {rec['syncs_in_call']['eager']}, graph "
         f"{rec['syncs_in_call']['graph']}")
     log(f"[graph] N={N} K={K}: capture (warm-up round included) "
@@ -984,6 +994,157 @@ def phase_swap(rows_all, against, rounds):
 
 
 MFE_BUCKETS = (32, 64, 128, 256, 512, 1024, 4096)
+
+
+class _SilentStages:
+    """A stage clock that marks nothing."""
+    idle = True
+
+    def to(self, name):
+        pass
+
+    round = resume = lambda self: None
+
+
+def phase_obs(rows_all, passes, G=GRAPH_G):
+    from torch.profiler import ProfilerActivity, profile
+
+    from rafft_tpu_torch import obs
+    from rafft_tpu_torch.engine.fold_torch import FoldEngine
+    from rafft_tpu_torch.parallel.sweep import bucket_batch, bucket_config
+
+    def span_s(reps):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            with obs.span("measure.probe"):
+                pass
+        return (time.perf_counter() - t0) / reps
+
+    off_ns = min(span_s(100_000) for _ in range(3)) * 1e9
+    with profile(activities=[ProfilerActivity.CPU]):
+        on_us = min(span_s(10_000) for _ in range(3)) * 1e6
+    obs.clear()
+    log(f"[obs] a span: {off_ns:.0f} ns with the profiler off, {on_us:.2f} "
+        f"us with it on")
+
+    cfg = bucket_config(128, 100, K_BEAM, 1000)
+    B = bucket_batch(16, 128)
+    seqs = [r["seq"] for r in rows_all if len(r["seq"]) <= 120][:B]
+    timed = FoldEngine(cfg, B=B, device="cuda")
+    plain = FoldEngine(cfg, B=B, device="cuda")
+    start = timed.init_state(seqs, seqids=list(range(len(seqs))))
+    want = {k: v.clone() for k, v in timed._advance_graphed(start, G).items()}
+    # a capture with no timing event: a stage clock that records nothing
+    graph_stages = obs.GraphStages
+    obs.GraphStages = _SilentStages
+    try:
+        got = plain._advance_graphed(start, G)
+    finally:
+        obs.GraphStages = graph_stages
+    diff = [k for k in want if not torch.equal(want[k], got[k])]
+    if diff:
+        raise AssertionError(f"obs: the graphs' states differ in {diff}")
+    key = ("_advance", G)
+    marks = len(timed._graphs[key][2].marks)
+    ms = {"without": [], "with": []}
+    for _ in range(passes):
+        for who in ("without", "with", "with", "without"):
+            eng = timed if who == "with" else plain
+            ms[who].append(event_ms(eng._graphs[key][0].replay, 20))
+    graph = timed._graphs[key][0]
+
+    def launch_ms(reps=5):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph.replay()
+            out.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        return out
+
+    launch = {"off": launch_ms()}
+    for tag, acts in (("cpu", [ProfilerActivity.CPU]),
+                      ("cpu+cuda", [ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])):
+        with profile(activities=acts):
+            launch[tag] = launch_ms()
+    log("[obs] host ms until replay() returns (device idle before): "
+        + "; ".join(f"profiler {k} {_median(v):.3f} {[round(x, 3) for x in v]}"
+                    for k, v in launch.items()))
+    obs.clear()
+    reps = 20
+    read_s = 0.0
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(reps):
+            timed._graphs[key][0].replay()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timed._graphs[key][2].read()
+            read_s += time.perf_counter() - t0
+    snap = obs.snapshot()
+    obs.clear()
+    stages = {k: v / reps for k, v in snap["stage_ms"].items()}
+    log(f"[obs] headline B={B} G={G}: {marks} timing events a replay; "
+        f"device ms a replay with them {_median(ms['with']):.3f} "
+        f"{[round(x, 3) for x in ms['with']]}, without "
+        f"{_median(ms['without']):.3f} "
+        f"{[round(x, 3) for x in ms['without']]}; reading a replay's stage "
+        f"clock {1e3 * read_s / reps:.3f} ms on the host; its stages "
+        f"{sum(stages.values()):.3f} ms on the device: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    return dict(span_off_ns=off_ns, span_on_us=on_us, marks=marks,
+                replay_ms=ms, launch_ms=launch, read_ms=1e3 * read_s / reps,
+                stage_ms=stages)
+
+
+TAIL_CALLS = 100
+
+
+def phase_tail(rows_all, calls=TAIL_CALLS):
+    from torch.profiler import ProfilerActivity, profile
+
+    from rafft_tpu_torch import obs
+    from rafft_tpu_torch.engine import fold_torch as FT
+    seqs = [r["seq"] for r in rows_all if 65 <= len(r["seq"]) <= 128]
+    order = np.random.default_rng(15).permutation(len(seqs))[: calls + 2]
+    kw = dict(nb_mode=100, max_stack=20, max_branch=1000, traj=True,
+              device="cuda")
+    for i in order[:2]:
+        FT.fold(seqs[i], **kw)
+    torch.cuda.synchronize()
+    walls, per = [], []           # per call: {span: ms}
+    with profile(activities=[ProfilerActivity.CPU]):
+        for i in order[2:]:
+            obs.clear()
+            t0 = time.perf_counter()
+            FT.fold(seqs[i], **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            spans = obs.snapshot()["spans"]
+            d = {k: 1e3 * v["total_s"] for k, v in spans.items()
+                 if not k.startswith("stage.")}
+            d["unspanned"] = 1e3 * spans["fold.call"]["self_s"]
+            per.append(d)
+    obs.clear()
+    reqs = sorted(range(len(per)), key=lambda r: per[r]["fold.call"])
+    cut = len(reqs) - len(reqs) // 10
+    slow, rest = reqs[cut:], reqs[:cut]
+    names = sorted({n for d in per for n in d} - {"fold.call"})
+
+    def mean(group, n):
+        return sum(per[r].get(n, 0.0) for r in group) / len(group)
+    excess = {n: mean(slow, n) - mean(rest, n) for n in names}
+    ms = np.asarray(walls) * 1e3
+    log(f"[tail] {len(walls)} calls: wall median {np.median(ms):.1f} ms, p90 "
+        f"{np.percentile(ms, 90):.1f}; fold.call of the slowest tenth "
+        f"{mean(slow, 'fold.call'):.1f} ms against {mean(rest, 'fold.call'):.1f}"
+        " for the others")
+    for n in sorted(names, key=lambda n: -excess[n]):
+        log(f"[tail] {n}: slowest tenth {mean(slow, n):.1f} ms, others "
+            f"{mean(rest, n):.1f} ms, excess {excess[n]:+.1f} ms")
+    return dict(walls_ms=ms.tolist(), per_call=[per[r] for r in reqs],
+                excess_ms=excess)
 
 
 def mfe_bucket_rows(rows_all, N, count):
@@ -1133,6 +1294,16 @@ def main(argv=None):
             phase_swap(rows, args.against, args.passes)
         elif ph == "mfe":
             phase_mfe(rows, args.passes)
+        elif ph == "tail":
+            rec = phase_tail(rows)
+            if args.out:
+                with open(os.path.join(args.out, "tail.json"), "w") as fh:
+                    json.dump(rec, fh, indent=1)
+        elif ph == "obs":
+            rec = phase_obs(rows, args.passes)
+            if args.out:
+                with open(os.path.join(args.out, "obs.json"), "w") as fh:
+                    json.dump(rec, fh, indent=1)
         elif ph == "graph":
             recs = phase_graph(rows, args.passes)
             if args.out:

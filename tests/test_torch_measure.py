@@ -60,16 +60,19 @@ def test_trace_stats(tmp_path):
         ev.append(dict(cat="kernel", name="k", ts=launch_ts + 50, dur=dur,
                        args=dict(correlation=corr)))
 
-    ev.append(dict(cat="user_annotation", name="stage:eval_pt", ts=100,
-                   dur=100))
-    ev.append(dict(cat="user_annotation", name="stage:eval_pt", ts=400,
-                   dur=50))
-    ev.append(dict(cat="user_annotation", name="stage:_regions", ts=1000,
+    ev.append(dict(cat="user_annotation", name="rafft.stage.complex",
+                   ts=100, dur=100))
+    ev.append(dict(cat="user_annotation", name="rafft.stage.complex",
+                   ts=400, dur=50))
+    ev.append(dict(cat="user_annotation", name="rafft.stage.loops", ts=1000,
                    dur=10))
-    kernel(1, 120, 2000)       # eval_pt
-    kernel(2, 410, 3000)       # eval_pt, second range
+    # another of the program's ranges is no stage
+    ev.append(dict(cat="user_annotation", name="rafft.engine.read", ts=250,
+                   dur=100))
+    kernel(1, 120, 2000)       # complex
+    kernel(2, 410, 3000)       # complex, second range
     kernel(3, 300, 4000)       # between the ranges: no stage
-    kernel(4, 1005, 1000)      # _regions
+    kernel(4, 1005, 1000)      # loops
     ev.append(dict(cat="gpu_memcpy", name="m", ts=2000, dur=500,
                    args=dict(correlation=5)))
     path = tmp_path / "trace.json"
@@ -77,9 +80,9 @@ def test_trace_stats(tmp_path):
     kms, nops, stages = MS._trace_stats(str(path))
     assert nops == 5
     assert kms == pytest.approx(10.5)
-    assert stages["eval_pt"] == pytest.approx((5.0, 0.15, 2))
-    assert stages["_regions"] == pytest.approx((1.0, 0.01, 1))
-    assert set(stages) == {"eval_pt", "_regions"}
+    assert stages["complex"] == pytest.approx((5.0, 0.15, 2))
+    assert stages["loops"] == pytest.approx((1.0, 0.01, 1))
+    assert set(stages) == {"complex", "loops"}
 
 
 def test_seeded_sequence():
