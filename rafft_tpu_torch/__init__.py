@@ -9,7 +9,8 @@ API (mirroring the reference's two-function surface) and more:
 
 `fold` runs the batched fold engine `FoldEngine` (any pair weights,
 beams up to K=255, the 128 to 4096 buckets; `fold_one` is its
-one-sequence call); a fold the engine flags, and an input it refuses
+one-sequence call; both keep their engines between calls until
+`release_engines()`); a fold the engine flags, and an input it refuses
 (fold_torch.engine_refusal), go to the sequential CPU parity engine
 (engine/fold_cpu.py), so it gives what rafft_tpu.fold gives.  The engine's wavefront window scan is a
 hand-written CUDA kernel for Hopper (csrc/wavefront.cu, built with nvcc
@@ -27,11 +28,13 @@ kernel's plain version.
 """
 
 from rafft_tpu_torch.engine.fold_torch import (EngineConfig, FoldEngine,
-                                               fold, fold_one)
+                                               fold, fold_one,
+                                               release_engines)
 from rafft_tpu_torch.kin.kinetics import kinetics
 from rafft_tpu_torch.mfe import MfeEngine, mfe_batch, mfe_fold
 
 __version__ = "0.1.0"
 
 __all__ = ["fold", "kinetics", "mfe_fold", "__version__", "EngineConfig",
-           "FoldEngine", "fold_one", "MfeEngine", "mfe_batch"]
+           "FoldEngine", "fold_one", "release_engines", "MfeEngine",
+           "mfe_batch"]

@@ -37,12 +37,17 @@ What differs from the JAX engine:
   run one graph of G steps (_steps, the jitted _steps_impl), captured once per
   engine and G on static state buffers, with one private memory pool per
   engine.  graphs=False runs the same code eagerly (the CPU path, and
-  the plain version the graphs are held to).
+  the plain version the graphs are held to).  fold and fold_one keep
+  their engines between calls (_kept_engine), as the jitted programs
+  stay compiled.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
@@ -1358,26 +1363,80 @@ def fold_one_config(n, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
                         R=16 if N <= 512 else 32)
 
 
+# The engines that fold() and fold_one() keep between calls, so that a call
+# at a configuration seen before replays the CUDA graphs its engine
+# captured then: at most KEPT_ENGINES, least recently used out first.  Four
+# hold the corpus's length mix (tools/measure.py --phases kept: 94% of calls
+# hit at 4, 95% at 8, 63% at 1)
+KEPT_ENGINES = 4
+_kept = OrderedDict()       # (EngineConfig, torch.device) -> FoldEngine
+_kept_lock = threading.Lock()
+
+
+def release_engines():
+    """Drop every engine that fold() and fold_one() keep.  Their state
+    buffers, kernel tables, CUDA graphs and graph memory pools are freed
+    only then, into PyTorch's caching allocator
+    (torch.cuda.empty_cache() gives them back to the card).  An engine
+    that a call is using at that moment is kept again when the call
+    ends."""
+    with _kept_lock:
+        _kept.clear()
+
+
+def _engine_key(cfg, device):
+    """(cfg, device) with the device's index filled in: "cuda" and
+    "cuda:<current device>" are one key."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return cfg, dev
+
+
+@contextlib.contextmanager
+def _kept_engine(cfg, device):
+    """A B=1 engine for cfg on device: the kept one (obs counter
+    fold.engine_hits), or one built now (fold.engine_misses); kept for
+    later calls when the call ends.  A call takes the kept engine out of
+    the store while it folds, so a call that wants it meanwhile builds
+    one of its own.  An engine whose call raised is not kept."""
+    key = _engine_key(cfg, device)
+    with _kept_lock:
+        eng = _kept.pop(key, None)
+    obs.count("fold.engine_misses" if eng is None else "fold.engine_hits")
+    if eng is None:
+        eng = FoldEngine(cfg, B=1, device=key[1])
+    yield eng
+    with _kept_lock:
+        _kept[key] = eng
+        _kept.move_to_end(key)
+        while len(_kept) > KEPT_ENGINES:
+            _kept.popitem(last=False)
+
+
 def _fold_one(sequence, nb_mode, max_stack, max_branch, min_hp, min_nrj,
               traj, temp, gc_wei, au_wei, gu_wei, device, structures=False):
     """fold_one's results and the fold's FLAG_* bitmask; with
     structures=True the Structure objects carry pair_list and node_list
-    (FoldEngine._structures, what the root fold returns)."""
+    (FoldEngine._structures, what the root fold returns).  The engine is
+    a kept one (_kept_engine)."""
     cfg = fold_one_config(len(sequence), nb_mode, max_stack, max_branch,
                           min_hp, min_nrj, temp, gc_wei, au_wei, gu_wei)
-    eng = FoldEngine(cfg, B=1, device=device)
     if structures:
         mk = lambda beam: beam
     else:
         mk = lambda rows: [Structure([], [], e, db) for db, e in rows]
-    if traj:
-        beams, steps, state = eng.run([sequence], collect_traj=True,
-                                      structures=structures)
-        out = (mk(beams[0]), [mk(s[0]) for s in steps])
-    else:
-        beams, state = eng.run([sequence], structures=structures)
-        out = mk(beams[0])
-    return out, int(eng.flags(state)[0])
+    with _kept_engine(cfg, device) as eng:
+        if traj:
+            beams, steps, state = eng.run([sequence], collect_traj=True,
+                                          structures=structures)
+            out = (mk(beams[0]), [mk(s[0]) for s in steps])
+        else:
+            beams, state = eng.run([sequence], structures=structures)
+            out = mk(beams[0])
+        # on a card the state is the engine's static buffers: read them
+        # before the engine serves another call
+        return out, int(eng.flags(state)[0])
 
 
 def fold_one(sequence, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
@@ -1386,7 +1445,9 @@ def fold_one(sequence, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
     """Single-sequence API on the batched engine (reference fold()
     signature plus the device to run on).  A flagged fold is returned as
     the engine made it, and a configuration the engine refuses raises
-    (engine_refusal): `fold` sends both to the CPU parity engine."""
+    (engine_refusal): `fold` sends both to the CPU parity engine.  The
+    engine is kept for later calls at the same configuration and device,
+    as fold's is (release_engines)."""
     return _fold_one(sequence, nb_mode, max_stack, max_branch, min_hp,
                      min_nrj, traj, temp, gc_wei, au_wei, gu_wei, device)[0]
 
@@ -1434,8 +1495,18 @@ def fold(sequence, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
       sweep() refolds them.
 
     Either is logged at INFO with its reason and counted in REFOLDS.  So
-    the result equals rafft_tpu.fold's on every input.  Each Structure
-    holds, as fold_cpu's do:
+    the result equals rafft_tpu.fold's on every input.
+
+    The engine is kept for later calls: a call at fold_one_config's
+    configuration and the device of an earlier call reuses that call's
+    engine and replays the CUDA graphs it captured, a call at a new one
+    builds, warms up and captures an engine.  At most KEPT_ENGINES are
+    kept, the least recently used dropped first; their memory comes back
+    only after release_engines().  A kept engine serves one call at a
+    time: a thread that wants it while it is in use folds on an engine
+    of its own.
+
+    Each Structure holds, as fold_cpu's do:
 
     - str_struct: the dot-bracket string;
     - energy: the Turner energy in kcal/mol, a float32 value;

@@ -1,6 +1,6 @@
 """Measure the port's fold path on one CUDA card, layer by layer.
 
-    python -m rafft_tpu_torch.tools.measure [--phases loops,headline,syncs,profile,kernel,walk,mfe,graph,obs,tail]
+    python -m rafft_tpu_torch.tools.measure [--phases loops,headline,syncs,profile,kernel,walk,mfe,graph,obs,tail,kept]
                                             [--passes 5] [--out DIR]
                                             [--max-stack 50] [--profile-buckets 256,512,1024]
 
@@ -102,6 +102,14 @@ Phases (each prints lines tagged with its name):
              the step's stage spans, inside engine.warmup, left out),
              fold.call's self time as unspanned; the slowest tenth of
              calls against the others, span by span;
+  kept     - fold_one's kept engines (fold_torch.KEPT_ENGINES) under
+             traffic that changes configuration: 120 calls at -ms 20 with
+             traj, from an empty store, at bounds 1, 4 and 8, on corpus
+             rows in a seeded order and on a bucket drawn uniformly per
+             call; the share of calls that found their engine kept, the
+             median, mean and p90 wall, the median hit and miss, and the
+             bytes the kept engines hold (allocated, and their graph
+             pools);
   mfe      - the batched MFE DP (mfe/mfe_torch.py) per MFE bucket (32 to
              1024 on a full batch of the bucket's first journal rows at
              bench_mfe's batch size, and 4096 on the longer 23S rRNA,
@@ -1147,6 +1155,71 @@ def phase_tail(rows_all, calls=TAIL_CALLS):
                 excess_ms=excess)
 
 
+KEPT_CALLS = 120
+KEPT_BOUNDS = (1, 4, 8)
+
+
+def phase_kept(calls=KEPT_CALLS, bounds=KEPT_BOUNDS):
+    """fold_one's kept engines under traffic that changes configuration:
+    for each bound (fold_torch.KEPT_ENGINES set to it), the same seeded
+    calls from empty store, at -ms 20 with traj (the api cell's
+    settings).  Two orders: `corpus`, rows of the whole corpus
+    (tools/corpus.py, every bucket 32-4096 at its share of the rows),
+    and `buckets`, a bucket drawn uniformly, then one of its rows.
+    fold_one shares fold's store and does not refold a flagged fold on
+    the CPU (a 23S refold takes minutes)."""
+    from rafft_tpu_torch.engine import fold_torch as FT
+    from rafft_tpu_torch.tools.corpus import corpus
+    seqs = [s for s, _ in corpus()]
+    kw = dict(nb_mode=100, max_stack=20, max_branch=1000, traj=True,
+              device="cuda")
+    cfg = lambda s: FT.fold_one_config(len(s), 100, 20, 1000)
+    by_n = {}
+    for s in seqs:
+        by_n.setdefault(cfg(s).N, []).append(s)
+    rng = np.random.default_rng(16)
+    orders = dict(corpus=[seqs[i] for i in rng.integers(len(seqs), size=calls)])
+    ns = sorted(by_n)
+    orders["buckets"] = [by_n[n][rng.integers(len(by_n[n]))]
+                         for n in rng.choice(ns, size=calls)]
+    saved = FT.KEPT_ENGINES
+    FT.fold_one("GGGAAACCC", **kw)       # the process's first-call costs
+    recs = {}
+    try:
+        for name, order in orders.items():
+            for bound in bounds:
+                FT.KEPT_ENGINES = bound
+                FT.release_engines()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                hits, walls = [], []
+                for s in order:
+                    hits.append(FT._engine_key(cfg(s), "cuda") in FT._kept)
+                    t0 = time.perf_counter()
+                    FT.fold_one(s, **kw)
+                    torch.cuda.synchronize()
+                    walls.append(1e3 * (time.perf_counter() - t0))
+                ms, hit = np.asarray(walls), np.asarray(hits)
+                rec = dict(
+                    hit_pct=float(100.0 * hit.mean()), p50_ms=float(np.median(ms)),
+                    mean_ms=float(ms.mean()),
+                    p90_ms=float(np.percentile(ms, 90)),
+                    hit_ms=float(np.median(ms[hit])) if hit.any() else None,
+                    miss_ms=float(np.median(ms[~hit])) if (~hit).any()
+                    else None,
+                    kept=len(FT._kept),
+                    held_bytes=torch.cuda.memory_allocated() - base,
+                    pool_bytes=sum(pool_bytes(e) for e in FT._kept.values()))
+                recs[f"{name}.{bound}"] = rec
+                log(f"[kept] {name} bound {bound}: {rec}")
+        log(f"[kept] buckets {{N: rows}}: "
+            f"{ {n: len(v) for n, v in sorted(by_n.items())} }")
+    finally:
+        FT.KEPT_ENGINES = saved
+        FT.release_engines()
+    return recs
+
+
 def mfe_bucket_rows(rows_all, N, count):
     """The first `count` journal rows of MFE bucket N (bench_mfe's
     bucketing); at 4096 the longer of the corpus' two 23S rRNAs."""
@@ -1298,6 +1371,11 @@ def main(argv=None):
             rec = phase_tail(rows)
             if args.out:
                 with open(os.path.join(args.out, "tail.json"), "w") as fh:
+                    json.dump(rec, fh, indent=1)
+        elif ph == "kept":
+            rec = phase_kept()
+            if args.out:
+                with open(os.path.join(args.out, "kept.json"), "w") as fh:
                     json.dump(rec, fh, indent=1)
         elif ph == "obs":
             rec = phase_obs(rows, args.passes)

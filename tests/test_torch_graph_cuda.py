@@ -95,3 +95,68 @@ def test_graphed_stream_and_run_match_eager():
     beams_e, st_e = eager.run(seqs[:3])
     assert beams_g == beams_e
     assert torch.equal(graph.flags(st_g), eager.flags(st_e))
+
+
+def _answer(final, steps=()):
+    beam = lambda structs: [
+        (s.str_struct, s.energy, set(s.pair_list),
+         [tuple(int(x) for x in a) for a in s.node_list]) for s in structs]
+    return beam(final), [beam(b) for b in steps]
+
+
+@pytest.mark.cuda
+def test_a_kept_engine_captures_nothing_again(monkeypatch):
+    """fold() at the api cell's settings (-ms 20, the CLI's -n 100
+    --max_branch 1000) on three 128-bucket sequences: after the first
+    call with and without a trajectory, the kept engine's graphs are
+    replayed and nothing is captured again (wavefront.CAPTURED,
+    FoldEngine._capture, the span engine.capture), and each answer, with
+    its trajectory, pair and node lists, equals that of an engine built
+    for the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rafft_tpu_torch import obs
+    _card()
+    FT.release_engines()
+    seqs = _random(16, 3, 70, 129)
+    kw = dict(nb_mode=100, max_stack=20, max_branch=1000, device="cuda")
+    want = {}
+    for seq in seqs:
+        eng = FT.FoldEngine(FT.fold_one_config(len(seq), 100, 20, 1000), B=1)
+        beams, steps, st = eng.run([seq], collect_traj=True, structures=True)
+        assert int(eng.flags(st)[0]) == 0
+        want[seq, True] = _answer(beams[0], [s[0] for s in steps])
+        want[seq, False] = _answer(eng.run([seq], structures=True)[0][0])
+    captures = []
+    capture = FT.FoldEngine._capture
+
+    def counted(self, body, G):
+        captures.append((body.__name__, G))
+        return capture(self, body, G)
+    monkeypatch.setattr(FT.FoldEngine, "_capture", counted)
+    refolds = FT.REFOLDS
+    for traj in (True, False):
+        got = FT.fold(seqs[0], traj=traj, **kw)
+        assert (_answer(*got) if traj else _answer(got)) == \
+            want[seqs[0], traj]
+    assert sorted(captures) == [("_steps", 1), ("_steps", 4)]
+    captured = WT.CAPTURED
+    obs.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for seq in seqs[1:]:
+            for traj in (True, False):
+                got = FT.fold(seq, traj=traj, **kw)
+                torch.cuda.synchronize()
+                assert (_answer(*got) if traj else _answer(got)) == \
+                    want[seq, traj], (seq, traj)
+    snap = obs.snapshot()
+    obs.clear()
+    assert WT.CAPTURED == captured and len(captures) == 2
+    assert FT.REFOLDS == refolds
+    assert snap["counters"].get("fold.engine_hits") == 4
+    assert "fold.engine_misses" not in snap["counters"]
+    for name in ("engine.build", "engine.warmup", "engine.capture"):
+        assert name not in snap["spans"], name
+    assert snap["spans"]["engine.launch"]["calls"] > 0
+    assert len(FT._kept) == 1
+    FT.release_engines()

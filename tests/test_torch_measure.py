@@ -148,3 +148,43 @@ def test_first_difference_is_a_tie(monkeypatch):
     b.scale = 0.5          # reorders lags across real gaps
     with pytest.raises(AssertionError, match="agree|not by a tie"):
         MS.first_difference_is_a_tie(a, b, seqs, 2e-5)
+
+
+def test_kept_counts_what_each_bound_keeps(monkeypatch):
+    """The kept phase's bookkeeping, with the fold itself replaced by a
+    call into the store: the same seeded calls at every bound, a larger
+    bound never hits less, the store never holds more than the bound, and
+    the bound is restored and the store emptied afterwards."""
+    import torch
+    from rafft_tpu_torch.engine import fold_torch as FT
+
+    class Engine:
+        _pool = None
+
+        def __init__(self, cfg, B, device):
+            self.cfg = cfg
+
+    sizes = []
+
+    def fold_one(seq, nb_mode, max_stack, max_branch, traj, device):
+        cfg = FT.fold_one_config(len(seq), nb_mode, max_stack, max_branch)
+        with FT._kept_engine(cfg, device):
+            sizes.append(len(FT._kept))
+
+    for name, fn in (("synchronize", lambda: None),
+                     ("empty_cache", lambda: None),
+                     ("memory_allocated", lambda: 0),
+                     ("current_device", lambda: 0)):
+        monkeypatch.setattr(torch.cuda, name, fn)
+    monkeypatch.setattr(FT, "FoldEngine", Engine)
+    monkeypatch.setattr(FT, "fold_one", fold_one)
+    FT.release_engines()
+    recs = MS.phase_kept(calls=60, bounds=(1, 2, 8))
+    assert FT.KEPT_ENGINES == 4 and not FT._kept
+    assert max(sizes) <= 8 - 1       # taken out of the store while in use
+    for order in ("corpus", "buckets"):
+        hits = [recs[f"{order}.{b}"]["hit_pct"] for b in (1, 2, 8)]
+        assert hits == sorted(hits) and 0 < hits[-1] < 100
+        assert [recs[f"{order}.{b}"]["kept"] for b in (1, 2)] == [1, 2]
+    # the corpus holds 7 buckets: at 8 only each one's first call misses
+    assert recs["buckets.8"]["hit_pct"] == 100.0 * (60 - 7) / 60

@@ -94,6 +94,8 @@ def test_run_stream_records_every_stage_once_per_round(monkeypatch):
 
 
 def test_fold_records_every_stage_once_per_step(monkeypatch):
+    # the fold builds its engine: none is kept from an earlier test's fold
+    FT.release_engines()
     steps = _calls(monkeypatch, "step")
     _, _, snap = _profiled(_fold)
     spans = snap["spans"]
