@@ -64,9 +64,10 @@ result line):
                 nt (N=128, B=16: 3,200 beam rows), the first 16 of the 256
                 bucket (B=16: 3,200 x 256), the first 8 of the 512 bucket
                 (B=8: 1,600 x 512) and the first 4 of the 1024 bucket (B=4):
-                flags printed by cause (a flagged fold is one the sweep
-                refolds on the CPU); an unflagged row's best structure and
-                energy equal the committed K=200 sweep
+                flags counted by cause (a flagged fold is one the sweep
+                refolds on the CPU), none of them cplx_budget at 128 (the
+                budget grows with K: cplx_budget); an unflagged row's best
+                structure and energy equal the committed K=200 sweep
                 (sweep_200n200_tpu.ckpt.jsonl up to 256,
                 sweep_200n200_cpu.ckpt.jsonl above: the JAX package's K=200
                 sweep of the 512 and 1024 buckets ran on its CPU engine) or,
@@ -837,14 +838,23 @@ def phase_k200(rows_all):
             if _k200_row(beam, w, f"k200 N={N} row {i} ({r['name']})"):
                 refolded.append(i)
         n_flagged = sum(map(bool, flags))
+        causes = {}
+        for f in flags:
+            for bit, cause in FT.FLAG_NAMES.items():
+                if f & bit:
+                    causes[cause] = causes.get(cause, 0) + 1
         if N == 128 and n_flagged > len(rows) // 2:
             raise AssertionError(f"k200 N={N}: most rows flagged: {flags}")
-        log(f"[k200] N={N} B={nb} K=200 ({nb * 200} beam rows): "
+        if N == 128 and causes.get("cplx_budget"):
+            raise AssertionError(f"k200 N={N}: {causes['cplx_budget']} rows "
+                                 f"overflowed the complex-candidate budget "
+                                 f"CPLX={eng.cfg.CPLX}")
+        log(f"[k200] N={N} B={nb} K=200 ({nb * 200} beam rows, CPLX="
+            f"{eng.cfg.CPLX}): "
             f"{len(rows) - len(refolded) - n_flagged} unflagged best rows "
             f"equal {ckpt}, {len(refolded)} equal fold_cpu instead (rows "
             f"{refolded}); {n_flagged} flagged, of which {flagged_equal} give "
-            f"the committed best row all the same; flags "
-            f"{[FT.flag_names(f) for f in flags]}; "
+            f"the committed best row all the same; flags by cause {causes}; "
             f"{len(rows) / secs:.3f} seq/s ({secs:.3f} s for {len(rows)}, "
             f"graphed); peak {peak / 2**20:.1f} MiB; wavefront "
             f"launches {n_launch}")

@@ -28,12 +28,20 @@ def device_params_from_energy_params(p, max_len: int, device) -> DeviceParams:
 
 
 def state_from_numpy(state: dict, device) -> dict:
+    """A torch engine state from a numpy one.  The keys that the port's
+    state has and the JAX engine's lacks (fold_torch.PORT_KEYS: int32,
+    one per lane) start at 0 where the numpy state has none."""
+    from rafft_tpu_torch.engine.fold_torch import PORT_KEYS
     out = {}
     for k, v in state.items():
         a = np.asarray(v)
         if a.dtype == np.uint32:
             a = a.astype(np.int64)
         out[k] = torch.as_tensor(a.copy(), device=device)
+    for k in PORT_KEYS:
+        if k not in out:
+            out[k] = torch.zeros(out["n"].shape, dtype=torch.int32,
+                                 device=device)
     return out
 
 

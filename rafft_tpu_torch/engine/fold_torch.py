@@ -101,6 +101,18 @@ CLAMP = 1 << 20
 # CLAMP / TBIG bound combination counts, which do not depend on N, and
 # the loop-size tables of energy/params.py reach 8,192 unpaired positions
 MAX_N = 4096
+# the state keys that the JAX engine's state lacks: each lane's most
+# complex candidates in any step of its fold, and the banked fold's
+PORT_KEYS = ("cplx_need", "out_cplx_need")
+
+
+def cplx_budget(base: int, K: int) -> int:
+    """The complex-candidate budget CPLX at beam width K: `base` per 50
+    beam rows begun, so K <= 50 keeps `base`.  A step offers K*R*M
+    candidates per lane, so a wider beam has proportionally more complex
+    ones to evaluate (a deliberate difference from the JAX sweep, whose
+    CPLX does not grow with K)."""
+    return base * -(-K // 50)
 
 
 @dataclass(frozen=True)
@@ -545,6 +557,7 @@ class FoldEngine:
             active=self._t(active), rorder=self._t(rorder),
             seen_h1=z(B, S, d=i64), seen_h2=z(B, S, d=i64), seen_cnt=z(B),
             done=self._t(n == 0), cplx_dropped=z(B), enum_suspect=z(B),
+            cplx_need=z(B),
             # continuous batching: per-lane shadow sequence, output buffer
             # for one finished fold, and bookkeeping
             seqid=self._t(sid), lane_steps=z(B),
@@ -553,7 +566,7 @@ class FoldEngine:
             out_pt=f(-1, B, K, N), out_E=z(B, K),
             out_act=z(B, K, d=torch.bool), out_n=z(B), out_seqid=f(-1, B),
             out_done=z(B, d=torch.bool), out_flag=z(B),
-            out_valid=z(B, d=torch.bool),
+            out_valid=z(B, d=torch.bool), out_cplx_need=z(B),
         )
 
     def _refill(self, state, mask, codes_new, n_new):
@@ -581,6 +594,7 @@ class FoldEngine:
         st["seen_cnt"] = torch.where(mask, 0, state["seen_cnt"])
         st["done"] = torch.where(mask, n_new == 0, state["done"])
         st["cplx_dropped"] = torch.where(mask, 0, state["cplx_dropped"])
+        st["cplx_need"] = torch.where(mask, 0, state["cplx_need"])
         st["enum_suspect"] = torch.where(mask, 0, state["enum_suspect"])
         return st
 
@@ -734,6 +748,7 @@ class FoldEngine:
 
         delta, resolved = self.complex_delta(state, c)
         dropped = (cplx & lag_ok & ~resolved).sum((1, 2, 3), dtype=i32)
+        need = (cplx & lag_ok).sum((1, 2, 3), dtype=i32)
         clock.to("enumerate")
 
         # ---- acceptance (reference float32 semantics)
@@ -972,6 +987,8 @@ class FoldEngine:
             seen_h1=s_h1[:, :S], seen_h2=s_h2[:, :S], seen_cnt=s_cnt.to(i32),
             done=done | unchanged,
             cplx_dropped=state["cplx_dropped"] + torch.where(keep, dropped, 0),
+            cplx_need=torch.maximum(state["cplx_need"],
+                                    torch.where(keep, need, 0)),
             enum_suspect=state["enum_suspect"] | torch.where(keep, bits, 0))
         clock.round()
         if own:
@@ -1002,6 +1019,8 @@ class FoldEngine:
         st["out_seqid"] = torch.where(rec, st["seqid"], st["out_seqid"])
         st["out_done"] = torch.where(rec, st["done"], st["out_done"])
         st["out_flag"] = torch.where(rec, self.flags(st), st["out_flag"])
+        st["out_cplx_need"] = torch.where(rec, st["cplx_need"],
+                                          st["out_cplx_need"])
         st["out_valid"] = st["out_valid"] | rec
         st2 = self._refill(st, rec, st["next_codes"], st["next_n"])
         st2["seqid"] = torch.where(rec, st["next_seqid"], st["seqid"])
@@ -1143,15 +1162,18 @@ class FoldEngine:
             return st
 
     _OUT_KEYS = ("out_pt", "out_E", "out_act", "out_n", "out_seqid",
-                 "out_done", "out_flag", "out_valid", "done", "seqid",
-                 "lane_steps")
+                 "out_done", "out_flag", "out_cplx_need", "out_valid", "done",
+                 "seqid", "lane_steps")
 
-    def run_stream(self, seqs, G: int = 4):
+    def run_stream(self, seqs, G: int = 4, needs=None):
         """Continuous-batching fold over a sequence list.
 
         Yields (index, rows, flagged) as folds finish, where rows is the
         final beam [(dot_bracket, energy_kcal)] best-first and flagged
-        the FLAG_* cause bitmask.  Finished lanes swap onto preloaded
+        the FLAG_* cause bitmask; `needs`, a dict where given, gets each
+        yielded fold's cplx_need (the most complex candidates any step
+        of it had: it overflowed the budget CPLX where above it) under
+        its index.  Finished lanes swap onto preloaded
         shadow sequences between steps; the host drains banked results
         and reloads shadows every G steps, reading `done` and the output
         buffers once per G steps.  On a card (graphs) the G steps are one
@@ -1162,9 +1184,13 @@ class FoldEngine:
 
         Traced (obs): the spans engine.rows (a fold's rows),
         stream.encode and stream.load of the host's drain, and the
-        counters stream.replays, stream.rounds, stream.folds, and after
-        each read stream.live_lanes (lanes folding a sequence, neither
-        done nor at the step limit) of stream.lanes."""
+        counters stream.replays, stream.rounds, stream.folds,
+        stream.flagged (folds with a flag bit) and stream.flagged.<cause>
+        (each bit by its FLAG_NAMES name), and after each read
+        stream.live_lanes (lanes folding a sequence, neither done nor at
+        the step limit) of stream.lanes; the high-water counters
+        stream.cplx_need_peak (the largest cplx_need of the folds
+        yielded) and stream.cplx_budget (CPLX)."""
         cfg, B = self.cfg, self.B
         LIM = 2 * cfg.max_steps
         nseq = len(seqs)
@@ -1184,6 +1210,17 @@ class FoldEngine:
                 codes, n = self._encode(placed, B)
             return load, codes, n, sid
 
+        def tally(sid, flag, need):
+            if needs is not None:
+                needs[sid] = need
+            if obs.recording():
+                obs.count("stream.folds")
+                obs.count("stream.flagged", int(flag != 0))
+                for bit, cause in FLAG_NAMES.items():
+                    if flag & bit:
+                        obs.count("stream.flagged." + cause)
+                obs.high("stream.cplx_need_peak", need)
+
         load, codes_new, n_new, sid_new = loader(range(B))
         state = self._drain_load(state, self._t(np.zeros(B, bool)),
                                  self._t(load), self._t(codes_new),
@@ -1192,9 +1229,10 @@ class FoldEngine:
         emitted = 0
         while emitted < nseq:
             state = advance(state, G)
-            (o_pt, o_E, o_act, o_n, o_sid, o_done, o_flag, o_valid,
+            (o_pt, o_E, o_act, o_n, o_sid, o_done, o_flag, o_need, o_valid,
              l_done, l_sid, l_steps) = self._fetch(state, self._OUT_KEYS)
             if obs.recording():
+                obs.high("stream.cplx_budget", cfg.CPLX)
                 obs.count("stream.replays")
                 obs.count("stream.rounds", G)
                 live = (l_sid >= 0) & ~l_done & (l_steps < LIM)
@@ -1205,9 +1243,9 @@ class FoldEngine:
             for b in fresh:
                 with obs.span("engine.rows"):
                     rows = self._rows_from(o_pt[b], o_E[b], o_act[b], o_n[b])
-                obs.count("stream.folds")
-                yield int(o_sid[b]), rows, int(o_flag[b]) | (
-                    0 if o_done[b] else FLAG_STEPLIM)
+                flag = int(o_flag[b]) | (0 if o_done[b] else FLAG_STEPLIM)
+                tally(int(o_sid[b]), flag, int(o_need[b]))
+                yield int(o_sid[b]), rows, flag
                 emitted += 1
                 clear[b] = True
             load, codes_new, n_new, sid_new = loader(fresh)
@@ -1221,18 +1259,18 @@ class FoldEngine:
                 live = (l_sid >= 0) & (l_done | (l_steps >= LIM))
                 if not live.any():
                     continue
-                pt_l, E_l, act_l, n_l, cd_l, es_l = self._fetch(
+                pt_l, E_l, act_l, n_l, cd_l, es_l, need_l = self._fetch(
                     state, ("pt", "energy", "active", "n", "cplx_dropped",
-                            "enum_suspect"))
+                            "enum_suspect", "cplx_need"))
                 kill = np.zeros(B, bool)
                 for b in np.where(live)[0]:
                     with obs.span("engine.rows"):
                         rows = self._rows_from(pt_l[b], E_l[b], act_l[b],
                                                n_l[b])
-                    obs.count("stream.folds")
-                    yield (int(l_sid[b]), rows,
-                           int(es_l[b]) | (FLAG_CPLX if cd_l[b] > 0 else 0)
-                           | (0 if l_done[b] else FLAG_STEPLIM))
+                    flag = (int(es_l[b]) | (FLAG_CPLX if cd_l[b] > 0 else 0)
+                            | (0 if l_done[b] else FLAG_STEPLIM))
+                    tally(int(l_sid[b]), flag, int(need_l[b]))
+                    yield int(l_sid[b]), rows, flag
                     emitted += 1
                     kill[b] = True
                 # retire emitted lanes (an empty sequence, seqid -1)
@@ -1356,6 +1394,7 @@ def fold_one_config(n, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
     N = 1 << max(5, int(np.ceil(np.log2(max(8, n)))))
     return EngineConfig(N=N, K=max_stack, M=min(nb_mode, 2 * N - 1),
                         max_branch=max_branch,
+                        CPLX=cplx_budget(512, max_stack),
                         min_hp=min_hp, min_nrj=min_nrj, temp=temp,
                         gc_wei=gc_wei, au_wei=au_wei, gu_wei=gu_wei,
                         V=min(4096, max(256, 2 * max_branch)),

@@ -8,7 +8,8 @@ nothing more when the profiler is off.  While it records:
 - `span(name)` is a `torch.profiler.record_function` range
   "rafft.<name>" (on the profiler's clock, beside the device's kernels)
   whose time (time.time_ns) is added to the span's sums;
-- `count(name, n=1)` adds to a counter;
+- `count(name, n=1)` adds to a counter, `high(name, value)` raises a
+  high-water counter to the largest value it is given;
 - the fold step marks its stage boundaries on a stage clock: run op by op
   (`HostStages`) each stage is a span "stage.<name>"; captured into a
   CUDA graph (`GraphStages`) each boundary is a timing event recorded by
@@ -96,6 +97,13 @@ def count(name, n=1):
         _counters[name] += n
 
 
+def high(name, value):
+    """Raise the high-water counter `name` to `value` while recording:
+    it holds the largest value given since the last clear()."""
+    if recording() and (name not in _counters or value > _counters[name]):
+        _counters[name] = value
+
+
 class HostStages:
     """The stage clock of a step run op by op: `to(name)` ends the open
     stage and, while recording, opens the span "stage.<name>" (the open
@@ -167,7 +175,7 @@ def snapshot():
     """What was recorded since the last clear():
 
     spans     {name: {"calls", "total_s", "self_s"}}
-    counters  {name: count}
+    counters  {name: count, or a high-water counter's largest value}
     stage_ms  {stage: device ms} (graph replays only)
     process   the program's counters since import: wavefront kernel
               launches and captured launches, fold() calls refolded on

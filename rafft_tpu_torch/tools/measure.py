@@ -1,6 +1,6 @@
 """Measure the port's fold path on one CUDA card, layer by layer.
 
-    python -m rafft_tpu_torch.tools.measure [--phases loops,headline,syncs,profile,kernel,walk,mfe,graph,obs,tail,kept]
+    python -m rafft_tpu_torch.tools.measure [--phases loops,headline,syncs,profile,kernel,walk,mfe,graph,obs,tail,kept,cplx]
                                             [--passes 5] [--out DIR]
                                             [--max-stack 50] [--profile-buckets 256,512,1024]
 
@@ -110,6 +110,22 @@ Phases (each prints lines tagged with its name):
              median, mean and p90 wall, the median hit and miss, and the
              bytes the kept engines hold (allocated, and their graph
              pools);
+  cplx     - the complex-candidate budget at -n 200 -ms 200 over the
+             1,894 rows of 65-128 nt that the committed K=200 sweep
+             folded at 128 (sweep_200n200_tpu.ckpt.jsonl): run_stream at
+             bucket_config(128, 200, 200, 1000), B=16, G=4, once at the
+             JAX sweep's budget (CPLX=512) and once at bucket_config's
+             (cplx_budget): each fold's cplx_need (quantiles, the largest,
+             the rows over 512, 1024 and 2048), flags by cause, seconds
+             and seq/s; at bucket_config's budget every fold unflagged and
+             its best row (struct, nrj) the committed one; the whole beam
+             of every row flagged at 512 and of every unflagged row whose
+             best row differs equal to fold_cpu's (a forkserver pool of
+             the host's cores).  Then each budget's graph on one start
+             state (the first 16 rows) in `--passes` rounds of 512, rule,
+             rule, 512: host ms of a replay of G rounds to a
+             synchronisation, and each stage's device ms a round (the
+             stage clocks, read under a CPU-only profiler);
   mfe      - the batched MFE DP (mfe/mfe_torch.py) per MFE bucket (32 to
              1024 on a full batch of the bucket's first journal rows at
              bench_mfe's batch size, and 4096 on the longer 23S rRNA,
@@ -143,6 +159,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 JOURNAL = os.path.join(ROOT, "benchmarks", "artifacts", "beams_100n50.jsonl.gz")
+K200_SWEEP = os.path.join(ROOT, "benchmarks", "artifacts",
+                          "sweep_200n200_tpu.ckpt.jsonl")
 BUCKETS = (128, 256, 512, 1024, 2048, 4096)
 # functions FoldEngine.step calls, each wrapped from outside for its rise
 # of the peak (_stage_peaks); the profile phase reads the step's own stage
@@ -1106,6 +1124,109 @@ def phase_obs(rows_all, passes, G=GRAPH_G):
                 stage_ms=stages)
 
 
+def _quantiles(xs):
+    xs = np.sort(np.asarray(xs))
+    return {f"p{q}": int(xs[min(len(xs) - 1, int(q / 100 * len(xs)))])
+            for q in (50, 90, 99)} | {"max": int(xs[-1])}
+
+
+def phase_cplx(passes, G=GRAPH_G):
+    import dataclasses
+    import multiprocessing
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from rafft_tpu_torch import obs
+    from rafft_tpu_torch.engine.fold_torch import (FLAG_CPLX, FoldEngine,
+                                                   flag_names)
+    from rafft_tpu_torch.parallel.sweep import (_cpu_refold, bucket_batch,
+                                                bucket_config)
+    with open(K200_SWEEP) as fh:
+        rows = [r for r in map(json.loads, fh) if r["_bucket"] == 128]
+    seqs = [r["seq"] for r in rows]
+    rule = bucket_config(128, 200, 200, 1000)
+    cfgs = {"jax": dataclasses.replace(rule, CPLX=512), "rule": rule}
+    B = bucket_batch(16, 128)
+    rec, engines, beams = {}, {}, {}
+    for tag, cfg in cfgs.items():
+        eng = engines[tag] = FoldEngine(cfg, B=B, device="cuda")
+        list(eng.run_stream(seqs[:B], G))          # capture, warm
+        needs, got = {}, {}
+        t0 = time.perf_counter()
+        for i, beam, flag in eng.run_stream(seqs, G, needs=needs):
+            got[i] = (beam, flag)
+        secs = time.perf_counter() - t0
+        need = [needs[i] for i in range(len(seqs))]
+        causes = {}
+        for _, flag in got.values():
+            if flag:
+                causes[flag_names(flag)] = causes.get(flag_names(flag), 0) + 1
+        over = {w: sum(n > w for n in need) for w in (512, 1024, 2048)}
+        rec[tag] = dict(CPLX=cfg.CPLX, rows=len(seqs), seconds=secs,
+                        seq_per_s=len(seqs) / secs, flags=causes,
+                        need=_quantiles(need), over=over,
+                        cplx_flagged=[i for i, (_, f) in got.items()
+                                      if f & FLAG_CPLX],
+                        needs=need)
+        beams[tag] = got
+        log(f"[cplx] CPLX={cfg.CPLX}: {len(seqs)} rows in {secs:.3f} s "
+            f"({len(seqs) / secs:.3f} seq/s); flags {causes}; cplx_need "
+            f"{rec[tag]['need']}, rows over 512/1024/2048 {over}; "
+            f"histogram (bins of 256) "
+            f"{np.bincount(np.asarray(need) // 256).tolist()}")
+    got = beams["rule"]
+    flagged = [i for i, (_, f) in got.items() if f]
+    differ = [i for i, (beam, f) in got.items() if not f and tuple(
+        beam[0]) != (rows[i]["struct"], rows[i]["nrj"])]
+    refold = sorted(set(rec["jax"]["cplx_flagged"]) | set(differ))
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("forkserver").Pool(
+            min(os.cpu_count() or 1, max(1, len(refold)))) as pool:
+        cpu = {i: beam for i, beam, _ in pool.map(
+            _cpu_refold, [(i, seqs[i], 200, 200, 1000) for i in refold],
+            chunksize=1)}
+    wrong = [i for i in refold
+             if [tuple(x) for x in got[i][0]] != [tuple(x) for x in cpu[i]]]
+    rec["check"] = dict(flagged=flagged, best_row_differs=differ,
+                        refolded=refold, refold_s=time.perf_counter() - t0,
+                        beam_differs_from_fold_cpu=wrong)
+    log(f"[cplx] CPLX={rule.CPLX}: {len(flagged)} flagged; "
+        f"{len(seqs) - len(flagged) - len(differ)} best rows equal the "
+        f"committed sweep, {len(differ)} differ (rows {differ}); fold_cpu "
+        f"refolded {len(refold)} rows (flagged at 512 or differing) in "
+        f"{rec['check']['refold_s']:.1f} s: whole beams differ in {wrong}")
+    if flagged or wrong:
+        raise AssertionError(f"cplx: flagged {flagged}, beams that differ "
+                             f"from fold_cpu {wrong}")
+    # one start state, each budget's graph in turns
+    nb = engines["jax"].B
+    start = engines["jax"].init_state(seqs[:nb], seqids=list(range(nb)))
+    host = {tag: [] for tag in cfgs}
+    stage = {tag: {} for tag in cfgs}
+    for _ in range(passes):
+        for tag in ("jax", "rule", "rule", "jax"):
+            eng = engines[tag]
+            host[tag].append(1e3 * _synced(
+                lambda: eng._advance_graphed(start, G)))
+            obs.clear()
+            with profile(activities=[ProfilerActivity.CPU]):
+                eng._advance_graphed(start, G)
+                torch.cuda.synchronize()
+                eng._read_stages()
+            for k, v in obs.snapshot()["stage_ms"].items():
+                stage[tag].setdefault(k, []).append(v / G)
+            obs.clear()
+    for tag in cfgs:
+        rec[tag].update(replay_host_ms=host[tag], stage_ms_per_round={
+            k: _median(v) for k, v in stage[tag].items()})
+        st = rec[tag]["stage_ms_per_round"]
+        log(f"[cplx] CPLX={cfgs[tag].CPLX}: a replay of {G} rounds "
+            f"{_median(host[tag]):.3f} ms ({[round(x, 3) for x in host[tag]]}"
+            f"); stages a round (medians) {sum(st.values()):.3f} ms: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in st.items()))
+    return rec
+
+
 TAIL_CALLS = 100
 
 
@@ -1372,6 +1493,11 @@ def main(argv=None):
             if args.out:
                 with open(os.path.join(args.out, "tail.json"), "w") as fh:
                     json.dump(rec, fh, indent=1)
+        elif ph == "cplx":
+            rec = phase_cplx(args.passes)
+            if args.out:
+                with open(os.path.join(args.out, "cplx.json"), "w") as fh:
+                    json.dump(rec, fh)
         elif ph == "kept":
             rec = phase_kept()
             if args.out:

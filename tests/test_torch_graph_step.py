@@ -124,10 +124,15 @@ def test_advance_rounds_match_jax():
         st_t = et._advance(st_t, 3)
         want = {k: np.asarray(v) for k, v in st_j.items()}
         got = state_to_numpy(st_t)
-        assert got.keys() == want.keys()
+        assert got.keys() == want.keys() | set(FT.PORT_KEYS)
         for k in want:
             np.testing.assert_array_equal(got[k], want[k],
                                           err_msg=f"call {call}: {k}")
+        # the port's own keys: counts of complex candidates, never more
+        # than a step offers
+        for k in FT.PORT_KEYS:
+            assert (0 <= got[k]).all() and (
+                got[k] <= cfg["K"] * cfg["R"] * cfg["M"]).all(), k
         last = want
     # nothing was drained, so every lane banked one fold and stopped
     assert last["out_valid"].all() and not last["next_avail"].any()

@@ -42,3 +42,26 @@ def test_k200_fold_matches_jax_and_fold_cpu():
             for s in fold_cpu.fold(seq, nb_mode=48, max_stack=200,
                                    max_branch=400)]
     assert beams_t[0] == want
+
+
+def test_the_budget_rule_resolves_a_fold_the_base_budget_flags():
+    """A K=200 fold whose steps offer more complex candidates than a
+    base budget of 32 holds: at 32 the port flags it (cplx_budget); at
+    cplx_budget(32, 200) = 128, the rule's budget, it is unflagged and
+    every row and its energy equal the benchmark's plain reference."""
+    from perfbench.reference.fold import fold as reference_fold
+    rng = np.random.default_rng(200)
+    seq = "".join(rng.choice(list("ACGU"), 60))
+    base = 32
+    flags, needs, beams = {}, {}, {}
+    for cplx in (base, FT.cplx_budget(base, 200)):
+        eng = FT.FoldEngine(FT.EngineConfig(**dict(CFG, CPLX=cplx)), B=1,
+                            device="cpu")
+        (beams[cplx],), st = eng.run([seq])
+        flags[cplx] = int(eng.flags(st)[0])
+        needs[cplx] = int(st["cplx_need"][0])
+    assert flags == {32: FT.FLAG_CPLX, 128: 0}
+    assert base < needs[128] <= 128
+    want = [(s.str_struct, s.energy) for s in reference_fold(
+        seq, nb_mode=48, max_stack=200, max_branch=400)]
+    assert beams[128] == want and len(want) > 150

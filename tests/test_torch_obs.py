@@ -10,6 +10,9 @@ the card's machine (tests/conftest.py imports JAX: leave it out there):
     python -m pytest --noconftest tests/test_torch_obs.py -m cuda
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -152,6 +155,56 @@ def test_live_lanes_are_at_most_the_lanes():
     assert c["stream.lanes"] == 3 * c["stream.replays"]
 
 
+def test_a_high_water_counter_keeps_the_largest_value():
+    obs.clear()
+    obs.high("h", 9)                      # nothing records
+    with profile(activities=[ProfilerActivity.CPU]):
+        for v in (3, 0, 7, 5):
+            obs.high("h", v)
+        obs.high("z", 0)
+    assert obs.snapshot()["counters"] == {"h": 7, "z": 0}
+
+
+# random 40-63 nt sequences at N=64, whose steps offer 0 to 10 complex
+# candidates
+CPLX_CFG = FT.EngineConfig(N=64, K=4, R=8, M=24, V=64, S=256, max_branch=64,
+                           max_steps=8)
+_rng = np.random.default_rng(7)
+CPLX_SEQS = ["".join(_rng.choice(list("ACGU"), int(_rng.integers(40, 64))))
+             for _ in range(5)]
+
+
+@pytest.mark.parametrize("cplx", [2, 512])
+def test_stream_counts_flags_by_cause_and_the_peak_need(cplx):
+    """stream.flagged and stream.flagged.<cause> count the folds
+    yielded with a flag bit, by cause; stream.cplx_need_peak is the
+    largest cplx_need of the folds, which overflowed the budget
+    stream.cplx_budget exactly where a fold is flagged cplx_budget."""
+    eng = FT.FoldEngine(dataclasses.replace(CPLX_CFG, CPLX=cplx), B=2,
+                        device="cpu")
+    needs = {}
+    out, _, snap = _profiled(lambda: list(eng.run_stream(CPLX_SEQS, G,
+                                                         needs=needs)))
+    c = snap["counters"]
+    flags = {i: flag for i, _, flag in out}
+    assert sorted(needs) == sorted(flags) == list(range(len(CPLX_SEQS)))
+    assert c["stream.folds"] == len(CPLX_SEQS)
+    assert c["stream.flagged"] == sum(f != 0 for f in flags.values())
+    for bit, cause in FT.FLAG_NAMES.items():
+        assert c.get("stream.flagged." + cause, 0) == sum(
+            bool(f & bit) for f in flags.values()), cause
+    assert c["stream.cplx_budget"] == cplx
+    assert c["stream.cplx_need_peak"] == max(needs.values()) > 2
+    for i, need in needs.items():
+        assert bool(flags[i] & FT.FLAG_CPLX) == (need > cplx), i
+    if cplx == 2:
+        assert c["stream.flagged.cplx_budget"] > 0
+    else:
+        assert c["stream.flagged"] == 0
+    # the same folds, untraced
+    assert sorted(eng.run_stream(CPLX_SEQS, G)) == sorted(out)
+
+
 def test_answers_are_bit_equal_with_and_without_the_profiler():
     plain = (_stream(), _fold())
     traced, _, snap = _profiled(lambda: (_stream(), _fold()))
@@ -277,6 +330,10 @@ def test_graph_stage_clocks_cover_the_replays_kernels():
     assert all(ms > 0 for ms in stage_ms.values()), stage_ms
     c = snap["counters"]
     assert c["stage.rounds"] == c["stream.rounds"] == 4 * c["stream.replays"]
+    # the drain's counters read what the replays banked
+    assert c["stream.cplx_budget"] == cfg.CPLX
+    assert c["stream.flagged"] == sum(f != 0 for _, _, f in traced)
+    assert 0 < c["stream.cplx_need_peak"] <= cfg.K * cfg.R * cfg.M
     kernel_s = _graph_kernel_s(prof)
     assert kernel_s > 0
     total_s = sum(stage_ms.values()) / 1e3

@@ -14,6 +14,7 @@ import csv
 import dataclasses
 import gzip
 import json
+import math
 import os
 
 import pytest
@@ -134,16 +135,23 @@ def test_sweep_cli_engine_flag(tmp_path):
     assert manifest["n_fallback"] == 0
 
 
-def _check_bucket_config(N, nb_mode, max_stack, max_branch):
+def _jax_bucket_config(N, nb_mode, max_stack, max_branch):
     # rafft_tpu/parallel/sweep.py:167-186, as the JAX sweep builds it
-    R = 16 if N <= 512 else 32
-    want = FJ.EngineConfig(N=N, K=max_stack, M=min(nb_mode, 2 * N - 1), R=R,
-                           max_branch=max_branch, V=4096,
-                           W=8 if N <= 128 else 24,
+    return FJ.EngineConfig(N=N, K=max_stack, M=min(nb_mode, 2 * N - 1),
+                           R=16 if N <= 512 else 32, max_branch=max_branch,
+                           V=4096, W=8 if N <= 128 else 24,
                            CPLX=512 if N <= 128 else 1024,
                            S=max(16384, 32 * max_stack))
+
+
+def _check_bucket_config(N, nb_mode, max_stack, max_branch):
+    """Every field is the JAX sweep's but CPLX, the kept difference: the
+    JAX sweep's budget once per 50 beam rows begun."""
+    want = dataclasses.asdict(_jax_bucket_config(N, nb_mode, max_stack,
+                                                 max_branch))
+    want["CPLX"] *= math.ceil(max_stack / 50)
     got = TS.bucket_config(N, nb_mode, max_stack, max_branch)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert dataclasses.asdict(got) == want
     assert TS.bucket_batch(16, N) == JS.bucket_batch(16, N) == {
         128: 16, 256: 16, 512: 8, 1024: 4, 2048: 2, 4096: 1}[N]
     # the engine takes the configuration (nothing is folded here)
@@ -153,12 +161,47 @@ def _check_bucket_config(N, nb_mode, max_stack, max_branch):
 @pytest.mark.parametrize("N", [128, 256, 512, 1024, 2048, 4096])
 def test_bucket_config_matches_jax_sweep(N):
     _check_bucket_config(N, 100, 50, 1000)
+    assert TS.bucket_config(N, 100, 50, 1000).CPLX == \
+        _jax_bucket_config(N, 100, 50, 1000).CPLX
 
 
 @pytest.mark.parametrize("N", [128, 256, 512, 1024, 2048, 4096])
 def test_bucket_config_k200_matches_jax_sweep(N):
-    """-n 200 -ms 200, the reference's second published configuration."""
+    """-n 200 -ms 200, the reference's second published configuration:
+    the JAX sweep's but a budget four times its own."""
     _check_bucket_config(N, 200, 200, 1000)
+    assert TS.bucket_config(N, 200, 200, 1000).CPLX == 4 * (
+        512 if N <= 128 else 1024)
+
+
+@pytest.mark.parametrize("K", [1, 5, 20, 49, 50, 51, 100, 150, 200, 255])
+def test_cplx_budget_rule(K):
+    """K <= 50 keeps the JAX engine's budget, at every bucket and in
+    fold_one's configuration; above, the budget grows by its base per
+    50 beam rows begun (4x at K = 200)."""
+    times = math.ceil(K / 50)
+    assert FT.cplx_budget(512, K) == 512 * times
+    for N in TS.DEFAULT_BUCKETS:
+        base = _jax_bucket_config(N, 100, K, 1000).CPLX
+        assert TS.bucket_config(N, 100, K, 1000).CPLX == base * times
+    # the JAX fold_one's configuration leaves CPLX at its default, 512
+    assert FJ.EngineConfig.CPLX == 512
+    for n in (20, 60, 128, 300, 1000, 4000):
+        cfg = FT.fold_one_config(n, 100, K, 1000)
+        assert cfg.CPLX == 512 * times
+
+
+def test_the_measured_cells_configurations_are_unchanged():
+    """The benchmark's two accepted configurations, field by field."""
+    assert dataclasses.asdict(TS.bucket_config(128, 100, 50, 1000)) == dict(
+        N=128, K=50, R=16, M=100, V=4096, W=8, CPLX=512, S=16384,
+        max_steps=24, max_branch=1000, min_hp=3, min_nrj=0.0, temp=37.0,
+        gc_wei=3.0, au_wei=2.0, gu_wei=1.0)
+    for n in (65, 100, 128):
+        assert dataclasses.asdict(FT.fold_one_config(n, 100, 20, 1000)) == \
+            dict(N=128, K=20, R=16, M=100, V=2000, W=8, CPLX=512, S=4096,
+                 max_steps=24, max_branch=1000, min_hp=3, min_nrj=0.0,
+                 temp=37.0, gc_wei=3.0, au_wei=2.0, gu_wei=1.0)
 
 
 def test_long_buckets_refused():
