@@ -5,9 +5,10 @@
 Phases (each raises on failure; the script exits nonzero and prints no
 result line):
   1. device   - a CUDA card is present; print its name and power limit;
-  2. build    - build the wavefront kernel from csrc/ (nvcc) and the
-                native Turner evaluator from native/ (g++), started
-                together, each timed;
+  2. build    - build the wavefront and delta kernels from csrc/ (nvcc)
+                and the native Turner evaluator from native/ (g++),
+                started together, each timed, with ptxas's registers and
+                spills;
   3. kernel   - at the shapes of every bucket's fold step (N=128: 16 x 50
                 beam rows, R=16; N=256: 16 x 50, R=16; N=512: 8 x 50,
                 R=16; N=1024: 4 x 50, R=32; N=2048: 2 x 50, R=32; N=4096:
@@ -75,6 +76,18 @@ result line):
                 fold_cpu; seconds and peak memory of each bucket, and the
                 kernel on its 4th step against the plain version's seven
                 whole tables, beside its bound;
+  7d. delta   - the delta kernel (csrc/delta.cu) against its plain
+                version (engine/delta.py:_candidate_delta), all four
+                outputs on every lane, on the first four fold steps of 16
+                journal rows of 65-128 nt at the two stream cells' shapes
+                (bucket_config(128, 100, 50, 1000) and (128, 200, 200,
+                1000), B=16); on the fourth step the kernel's device time
+                (CUDA events, calls enqueued ahead), the plain version's,
+                and the kernel's bound (delta_work's bytes over 3.35
+                TB/s); then the 1,894 rows of 65-128 nt of
+                sweep_200n200_tpu.ckpt.jsonl through run_stream at (128,
+                200, 200, 1000), graphed: no row flagged, each best row
+                the committed one or the whole beam fold_cpu's;
   7c. long    - run_stream at bucket_config(4096, 100, 50, 1000), B=1, on
                 the two 23S rRNAs of longtail.ckpt.jsonl (2,915 and 2,968
                 nt): a row carries a nonzero flag, printed by cause, or
@@ -272,6 +285,7 @@ from rafft_tpu_torch.energy import eval_torch as ET
 from rafft_tpu_torch.energy.eval_np import eval_structure_int
 from rafft_tpu_torch.energy.params import encode_sequence, get_params
 from rafft_tpu_torch.engine import fold_cpu
+from rafft_tpu_torch.engine import delta as DL
 from rafft_tpu_torch.engine import fold_torch as FT
 from rafft_tpu_torch.engine import wavefront as WT
 from rafft_tpu_torch.engine.fold_torch import (EngineConfig, FoldEngine,
@@ -287,8 +301,10 @@ from rafft_tpu_torch.tools import (bench, bench_full, debug_delta, debug_seq,
                                    perfcheck)
 from rafft_tpu_torch.tools.bench_mfe import mfe_bucket_batch, mfe_records
 from rafft_tpu_torch.tools.corpus import journal, reference_order, short_rows
-from rafft_tpu_torch.tools.measure import (KERNEL_SHAPES, bucket_rows,
-                                           capture_kernel_call, event_ms,
+from rafft_tpu_torch.tools.measure import (K200_SWEEP, KERNEL_SHAPES,
+                                           MEM_RATE, bucket_rows,
+                                           capture_kernel_call,
+                                           delta_step_calls, event_ms,
                                            first_difference_is_a_tie,
                                            GRAPH_G, graph_cell, pool_bytes,
                                            kernel_bound, mfe_bucket_rows,
@@ -347,8 +363,8 @@ def phase_device():
 
 @phase
 def phase_build():
-    """Both native sources, started together; seconds of each."""
-    names = ("wavefront", "turner_eval")
+    """The native sources, started together; seconds of each."""
+    names = ("wavefront", "delta", "turner_eval")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(_build.build, names))
@@ -360,7 +376,7 @@ def phase_build():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] ptxas: {line.strip()}")
-    log(f"[build] both in {wall:.2f} s")
+    log(f"[build] all in {wall:.2f} s")
     return secs
 
 
@@ -866,6 +882,101 @@ def phase_k200(rows_all):
         log(f"[k200] N={N}: {time.perf_counter() - t_bucket:.2f} s for the "
             f"bucket (fold, checks and the kernel's comparison)")
     return launches, steps
+
+
+# phase delta: the stream cells' step shapes (tag, beam width, nb_mode)
+DELTA_CELLS = (("n100ms50", 50, 100), ("n200ms200", 200, 200))
+
+
+def _delta_vs_plain(args, what):
+    """The delta kernel's four outputs equal the plain version's on every
+    lane of `args` (candidate_delta's positional arguments).  Returns the
+    lanes with a run and the unsupported ones."""
+    got = DL.candidate_delta(*args)
+    want = DL._candidate_delta(*args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(DL.OUT_KEYS, got, want):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            bad = (g != w).nonzero()[:5].tolist()
+            raise AssertionError(f"delta kernel: {name} differs ({what}) at "
+                                 f"{bad}")
+    return int(want[2].sum()), int((want[1] & want[2]).sum())
+
+
+@phase
+def phase_delta(rows_all):
+    """The delta kernel (csrc/delta.cu) against its plain version on the
+    first four steps of 16 journal rows at each stream cell's shape (N=128,
+    B=16; K=50, M=100 and K=200, M=200), every lane of all four outputs;
+    the kernel, the plain version and the kernel's byte bound on the
+    fourth step; then the whole -n 200 -ms 200 band (the 1,894 rows of
+    65-128 nt of the committed K=200 sweep) through run_stream, graphed:
+    no row flagged, every best row the committed one or the whole beam
+    fold_cpu's."""
+    dev = torch.device("cuda")
+    out = _build.BUILD_LOG.get("delta", (0.0, "(cached)"))[1]
+    ptxas = [line.strip() for line in out.splitlines()
+             if "registers" in line or "spill" in line]
+    for line in ptxas:
+        log(f"[delta] ptxas: {line}")
+    seqs = [r["seq"] for r in rows_all if 65 <= len(r["seq"]) <= 128][:B]
+    shapes = []
+    for tag, K, nb_mode in DELTA_CELLS:
+        cfg = bucket_config(128, nb_mode, K, 1000)
+        eng = FoldEngine(cfg, B=B, device=dev, graphs=False)
+        calls = delta_step_calls(eng, seqs, 4)
+        runs = unsup = 0
+        for i, args in enumerate(calls):
+            h, u = _delta_vs_plain(args, f"{tag} step {i + 1}")
+            runs, unsup = runs + h, unsup + u
+        args = calls[-1]
+        shape = tuple(args[9]["max_nb"].shape)
+        ms = event_ms(lambda: DL.candidate_delta(*args), 200, queued=True)
+        plain_ms = event_ms(lambda: DL._candidate_delta(*args), 5)
+        work = DL.delta_work(shape, cfg.N, sum(
+            getattr(eng.dp, k).numel() for k in ET.TABLES))
+        bound = 1e3 * work["bytes"] / MEM_RATE
+        log(f"[delta] {tag} {shape}: 4 steps, 4/4 outputs equal the plain "
+            f"version on every lane ({runs} lanes with a run, {unsup} "
+            f"unsupported); kernel {ms:.4f} ms/call, plain torch "
+            f"{plain_ms:.3f} ms/call; {work['bytes'] / 1e6:.1f} MB, bound "
+            f"{bound:.4f} ms by bytes: the kernel runs at {bound / ms:.1%} "
+            f"of the bound's rate")
+        shapes.append(dict(cell=tag, shape=list(shape), ms=ms,
+                           plain_ms=plain_ms, bound_ms=bound,
+                           bound_by="bytes", bytes=work["bytes"],
+                           share_of_bound=bound / ms))
+        del eng, calls, args
+        torch.cuda.empty_cache()
+    with open(K200_SWEEP) as fh:
+        band = [r for r in map(json.loads, fh) if r["_bucket"] == 128]
+    eng = FoldEngine(bucket_config(128, 200, 200, 1000), B=B, device=dev)
+    list(eng.run_stream([r["seq"] for r in band[:B]]))     # capture, warm
+    torch.cuda.synchronize()
+    before = DL.LAUNCHES
+    t0 = time.perf_counter()
+    got = {i: (beam, flag) for i, beam, flag in
+           eng.run_stream([r["seq"] for r in band])}
+    secs = time.perf_counter() - t0
+    launches = DL.LAUNCHES - before
+    flagged = [i for i, (_, flag) in got.items() if flag]
+    if flagged or len(got) != len(band) or launches == 0:
+        raise AssertionError(f"delta: the K=200 band flagged {flagged}, "
+                             f"folded {len(got)} of {len(band)}, delta "
+                             f"launches {launches}")
+    refolded = [i for i in range(len(band)) if _k200_row(
+        got[i][0], band[i], f"K=200 band row {i}")]
+    log(f"[delta] the K=200 band: {len(band)} rows through run_stream in "
+        f"{secs:.3f} s ({len(band) / secs:.3f} seq/s, graphed), 0 flagged; "
+        f"{len(band) - len(refolded)} best rows equal {os.path.basename(K200_SWEEP)}, "
+        f"{len(refolded)} equal fold_cpu's whole beam instead (rows "
+        f"{refolded}); delta launches {launches}")
+    return dict(ms=shapes[-1]["ms"], plain_ms=shapes[-1]["plain_ms"],
+                bound_ms=shapes[-1]["bound_ms"], bound_by="bytes",
+                library_ms=None, ptxas=ptxas, shapes=shapes,
+                band=dict(rows=len(band), seconds=secs,
+                          seq_per_s=len(band) / secs, refolded=refolded,
+                          launches=launches))
 
 
 @phase
@@ -2091,7 +2202,8 @@ def main(argv=None):
                                          "(default 3600)")
     ap.add_argument("--only", help="comma-separated phases to run after "
                     "device and build (kernel, fold_one, oracle, weights, "
-                    "headline, loops, buckets, k200, long, sweep, cli, mfe, "
+                    "headline, loops, buckets, k200, delta, long, sweep, "
+                    "cli, mfe, "
                     "api, multi, bench, tools, graph), then --full and "
                     "--k200-full "
                     "where given: a partial run, which prints no result line")
@@ -2101,7 +2213,7 @@ def main(argv=None):
         refs = json.load(fh)
     phase_build()
     rows = journal()
-    launches, steps, kern = {}, [], {}
+    launches, steps, kern, kern_delta = {}, [], {}, {}
 
     def counted(name, result):
         n, step = result
@@ -2118,6 +2230,7 @@ def main(argv=None):
         loops=phase_loops,
         buckets=lambda: counted("bucket", phase_buckets(rows)),
         k200=lambda: counted("k200_", phase_k200(rows)),
+        delta=lambda: kern_delta.update(phase_delta(rows)),
         long=lambda: counted("long", phase_long(refs)),
         sweep=lambda: counted("sweep", (phase_sweep(rows), [])),
         cli=lambda: phase_cli(refs),
@@ -2151,7 +2264,10 @@ def main(argv=None):
         source="rafft_tpu_torch/csrc/wavefront.cu",
         replaces="rafft_tpu/engine/wavefront.py:44",
         launches=sum(launches.values()), launches_by_path=launches,
-        **kern)]}))
+        **kern), dict(
+        name="delta", route="cuda", source="rafft_tpu_torch/csrc/delta.cu",
+        replaces=None, launches=kern_delta["band"]["launches"],
+        **kern_delta)]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,10 @@ What differs from the JAX engine:
   from the tables at the chosen lags: they are a sequential float32
   recurrence per lag, the same in the tables and in
   fold_jax._window_scan;
+* every candidate's exact dE (the stage delta) comes from
+  engine/delta.py: the CUDA kernel csrc/delta.cu on the card, its plain
+  version (fold_jax._candidate_delta's semantics on the lanes) on the
+  CPU;
 * lookups are plain gathers: no one-hot einsums, no lane compaction and
   no f32 packing of dE / hash halves (dE, live-region counts and hashes
   stay integer tensors; hashes are uint32 values held in int64);
@@ -59,11 +63,13 @@ from rafft_tpu_torch.energy.params import encode_sequence
 from rafft_tpu_torch.scan.correlate import correlate_fft
 from rafft_tpu_torch.scan.encode import weight_matrix
 from rafft_tpu_torch.struct import Structure, dot_bracket
-from rafft_tpu_torch.energy.eval_torch import (_ext_stem_v, _hairpin_v,
-                                               _int_loop_v, _kmer_keys,
-                                               _ml_stem, _ptype, analyze_pt,
+from rafft_tpu_torch.energy.eval_torch import (_kmer_keys, analyze_pt,
                                                device_params, eval_pt, take)
+from rafft_tpu_torch.engine import delta as DL
 from rafft_tpu_torch.engine import wavefront as WT
+# the stage delta: the wrapper, and its plain version for the tools
+from rafft_tpu_torch.engine.delta import (_candidate_delta,  # noqa: F401
+                                          _children, candidate_delta)
 from rafft_tpu_torch.engine.wavefront import small_tables, wavefront_tables
 
 _LOG = logging.getLogger(__name__)
@@ -241,168 +247,6 @@ def _top_lags(cfg, cor):
     srt = torch.sort(cor.flip(-1), dim=-1, descending=True, stable=True)
     idx = srt.indices[..., : cfg.M]
     return ((cor.shape[-1] - 1) - idx).to(torch.int32), srt.values[..., : cfg.M]
-
-
-def _children(cfg, pt, loops, rorder, C):
-    """Per (b, k, r): the enclosing loop's direct children, ascending,
-    with prefix sums of their multiloop-stem and exterior terms.
-
-    Returns chs [B,K,R,C'] (starts, N-padded; C' = min(C, N)), pml and
-    pext [B,K,R,C'+1], nch [B,K,R]."""
-    N = cfg.N
-    ii = torch.arange(N, dtype=torch.int32, device=pt.device)
-    memb = (loops["is_open"][:, :, None, :]
-            & (loops["enclose"][:, :, None, :] == rorder[..., None])
-            & (rorder[..., None] > -2))
-    chs = torch.where(memb, ii, N).sort(-1).values[..., :C]
-    nch = memb.sum(-1, dtype=torch.int32)
-    ok = chs < N
-    chc = chs.clamp(0, N - 1)
-
-    def prefix(per_child):
-        x = torch.where(ok, take(per_child, chc), 0)
-        return F.pad(x.cumsum(-1, dtype=torch.int32), (1, 0))
-
-    return chs, prefix(loops["mls"]), prefix(loops["exts"]), nch
-
-
-def _candidate_delta(cfg, dp, codes, n, keys, pt, loops, rorder, rpos, ws,
-                     C=48):
-    """Exact incremental integer dE for every candidate [B,K,R,M].
-
-    Semantics of fold_jax._candidate_delta, computed directly on the
-    [B,K,R,M] lanes.  Candidates whose stem jumps an excised gap or whose
-    region has more than C children are flagged unsupported (complex)
-    and resolved by full evaluation under the CPLX budget.  Returns
-    (delta, unsupported, has, p0)."""
-    N = cfg.N
-    run, i_s, j_s, bsE = ws["max_nb"], ws["max_i"], ws["max_j"], ws["best_sE"]
-    has = run > 0
-    nb_ = n.view(-1, 1, 1, 1)
-
-    # ---------- stem ends in sequence coordinates, gap detection
-    jump = F.pad((rpos[..., 1:] - rpos[..., :-1] > 1).to(torch.int32), (1, 0))
-    cumJ = jump.cumsum(-1, dtype=torch.int32)
-
-    def posg(idx):
-        c = idx.clamp(0, N - 1)
-        return take(rpos, c), take(cumJ, c)
-
-    p0, cj_p = posg(i_s)                     # innermost 5'
-    q0, cj_q = posg(j_s)                     # innermost 3'
-    a, cj_a = posg(i_s - run + 1)            # outermost 5'
-    b2, cj_b = posg(j_s + run - 1)           # outermost 3'
-    ngaps = torch.where(has, (cj_p - cj_a) + (cj_b - cj_q), 0)
-
-    # ---------- children of each region's enclosing loop
-    chs, pml, pext, nch = _children(cfg, pt, loops, rorder, C)
-    Ceff = chs.shape[-1]
-    chs_e = chs[..., None, :]
-
-    def ssr(q):  # first child index with start > q
-        return (chs_e <= q[..., None]).sum(-1, dtype=torch.int32)
-
-    def ssl(q):  # first child index with start >= q
-        return (chs_e < q[..., None]).sum(-1, dtype=torch.int32)
-
-    def ptake(pref, idx):
-        return take(pref, idx.clamp(0, Ceff))
-
-    def prange(pref, lo, hi):
-        return ptake(pref, hi) - ptake(pref, lo)
-
-    lo_in = ssr(p0)
-    hi_in = ssl(q0)
-    cin = hi_in - lo_in
-    fc_in = take(chs, lo_in.clamp(0, Ceff - 1))
-
-    # ---------- codes around a position: (codes[i], codes[i-1], codes[i+1])
-    codes_m1 = F.pad(codes[:, :-1], (1, 0))
-    codes_p1 = F.pad(codes[:, 1:], (0, 1))
-
-    def cg(idx):
-        c = idx.clamp(0, N - 1)
-        return take(codes, c), take(codes_m1, c), take(codes_p1, c)
-
-    def m_raw(vals, idx, off):
-        # bounds on the raw logical index idx+off
-        j = idx + off
-        return torch.where((j >= 0) & (j < nb_), vals, 0)
-
-    def m_clip(vals, idx, off):
-        # bounds on clip(idx)+off
-        j = idx.clamp(0, N - 1) + off
-        return torch.where((j >= 0) & (j < nb_), vals, 0)
-
-    def clip(x):
-        return x.clamp(0, N - 1)
-
-    cv_p0, cv_q0, cv_a, cv_b2 = cg(p0), cg(q0), cg(a), cg(b2)
-
-    # ---------- inner loop closed by (p0, q0)
-    t_pq = _ptype(dp, m_clip(cv_p0[0], p0, 0), m_clip(cv_q0[0], q0, 0))
-    hpE = _hairpin_v(dp, t_pq, m_clip(cv_p0[2], p0, 1),
-                     m_clip(cv_q0[1], q0, -1), clip(q0) - clip(p0) - 1,
-                     *(take(kk, clip(p0)) for kk in keys))
-    cv_fc = cg(fc_in)
-    fc_in_e = take(pt, clip(fc_in))
-    cv_fe = cg(fc_in_e)
-    t2_in = _ptype(dp, m_clip(cv_fe[0], fc_in_e, 0), m_clip(cv_fc[0], fc_in, 0))
-    ilE = _int_loop_v(dp, t_pq, t2_in,
-                      m_clip(cv_p0[2], p0, 1), m_clip(cv_q0[1], q0, -1),
-                      m_clip(cv_fc[1], fc_in, -1), m_clip(cv_fe[2], fc_in_e, 1),
-                      clip(fc_in) - clip(p0) - 1, clip(q0) - clip(fc_in_e) - 1)
-
-    def mlstem_v(cv_x, x, cv_y, y):
-        # stem (x, y) seen from its enclosing loop (raw-index bounds)
-        t = _ptype(dp, m_raw(cv_x[0], x, 0), m_raw(cv_y[0], y, 0))
-        return _ml_stem(dp, t, m_raw(cv_x[1], x, -1), m_raw(cv_y[2], y, 1))
-
-    def mlclose_v(cv_x, x, cv_y, y):
-        # closing pair (x, y) seen from inside: reversed type
-        t = _ptype(dp, m_raw(cv_y[0], y, 0), m_raw(cv_x[0], x, 0))
-        return _ml_stem(dp, t, m_raw(cv_y[1], y, -1), m_raw(cv_x[2], x, 1))
-
-    mlE_in = (dp.ml_closing + mlclose_v(cv_p0, p0, cv_q0, q0)
-              + prange(pml, lo_in, hi_in))
-    innerE = torch.where(cin == 0, hpE, torch.where(cin == 1, ilE, mlE_in))
-
-    # ---------- enclosing loop transition (region-level values [B,K,R,1])
-    lab = rorder[..., None]
-    labc = lab.clamp(0, N - 1)
-    is_ext = lab == -1
-    bL = take(loops["branches"], labc)
-    eL = take(loops["loop_e"], labc)
-    j_lab = take(pt, labc)
-    cv_lab, cv_jl = cg(lab), cg(j_lab)
-
-    lo_sw = ssr(a - 1)     # children with start >= a
-    hi_sw = ssl(b2 + 1)    # children with start <= b2
-    sw = hi_sw - lo_sw
-    mlsub = prange(pml, lo_sw, hi_sw)
-    bLn = bL - sw + 1
-
-    t1_L = _ptype(dp, m_clip(cv_lab[0], lab, 0), m_clip(cv_jl[0], j_lab, 0))
-    t2_L = _ptype(dp, m_clip(cv_b2[0], b2, 0), m_clip(cv_a[0], a, 0))
-    il_new = _int_loop_v(dp, t1_L, t2_L,
-                         m_clip(cv_lab[2], lab, 1), m_clip(cv_jl[1], j_lab, -1),
-                         m_clip(cv_a[1], a, -1), m_clip(cv_b2[2], b2, 1),
-                         clip(a) - labc - 1, clip(j_lab) - clip(b2) - 1)
-    ml_total = ptake(pml, nch[..., None])
-    mlE_L = (dp.ml_closing + mlclose_v(cv_lab, lab, cv_jl, j_lab)
-             + ml_total - mlsub + mlstem_v(cv_a, a, cv_b2, b2))
-    t_ext = _ptype(dp, m_clip(cv_a[0], a, 0), m_clip(cv_b2[0], b2, 0))
-    ext_new = _ext_stem_v(dp, t_ext, m_clip(cv_a[1], a, -1),
-                          m_clip(cv_b2[2], b2, 1), clip(a) > 0,
-                          clip(b2) < nb_ - 1)
-    ext_sub = prange(pext, lo_sw, hi_sw)
-    dL = torch.where(is_ext, ext_new - ext_sub,
-                     torch.where(bLn == 1, il_new - eL, mlE_L - eL))
-
-    delta = bsE + innerE + dL
-    unsupported = has & ((ngaps > 0) | (nch[..., None] > C))
-    delta = torch.where(has & ~unsupported, delta, 0)
-    return delta, unsupported, has, p0
 
 
 def _combo_pt(cfg, pt, rloc, rslot, rpos, krow, chosen_i, chosen_j,
@@ -670,7 +514,7 @@ class FoldEngine:
         hd2 = tabs["hd2"].gather(-1, li).long() & MASK32
         clock.to("delta")
 
-        delta, cplx, has, p0 = _candidate_delta(
+        delta, cplx, has, p0 = candidate_delta(
             cfg, dp, codes, n, keys, pt, loops, rorder, rpos, ws)
         if own:
             clock.to(None)
@@ -1097,15 +941,16 @@ class FoldEngine:
         graph, launches, stages = self._graphs[key]
         with obs.span("engine.launch"):
             graph.replay()
-        WT.count_replay(launches)
+        WT.count_replay(launches[0])
+        DL.count_replay(launches[1])
         if obs.recording():
             self._pending[key] = stages
         return dict(st)
 
     def _capture(self, body, G):
         """Warm up, then capture body(static state, G) and its copy back
-        into the static buffers.  Returns (graph, kernel launches in it,
-        its stage clock: obs.GraphStages, whose timing events the graph
+        into the static buffers.  Returns (graph, the wavefront and delta
+        kernels' launches in it, its stage clock: obs.GraphStages, whose timing events the graph
         records at every replay, whether or not the profiler records; the
         copy back is timed with the body's last stage, the final swap or
         the pool)."""
@@ -1120,7 +965,7 @@ class FoldEngine:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        before = WT.CAPTURED
+        before = WT.CAPTURED, DL.CAPTURED
         host, stages = self._stages, obs.GraphStages()
         self._stages = stages
         try:
@@ -1134,7 +979,8 @@ class FoldEngine:
                 del out      # nothing of the capture stays live in the pool
         finally:
             self._stages = host
-        return graph, WT.CAPTURED - before, stages
+        launches = WT.CAPTURED - before[0], DL.CAPTURED - before[1]
+        return graph, launches, stages
 
     def _read_stages(self):
         """After a host read that waited for the replays since the last

@@ -20,9 +20,9 @@ nothing more when the profiler is off.  While it records:
 `snapshot()` sums what was recorded since the last `clear()`: each span's
 calls, total and self seconds (the span less its child spans), the
 counters, the stages' device ms, and the program's process-wide counters
-(wavefront launches and captures, fold()'s refolds).  The ranges
-themselves are the profiler's.  The trace is one per process, like the
-profiler it follows; spans nest per thread.
+(the wavefront and delta kernels' launches and captures, fold()'s
+refolds).  The ranges themselves are the profiler's.  The trace is one
+per process, like the profiler it follows; spans nest per thread.
 """
 
 from __future__ import annotations
@@ -177,17 +177,19 @@ def snapshot():
     spans     {name: {"calls", "total_s", "self_s"}}
     counters  {name: count, or a high-water counter's largest value}
     stage_ms  {stage: device ms} (graph replays only)
-    process   the program's counters since import: wavefront kernel
-              launches and captured launches, fold() calls refolded on
-              the host
+    process   the program's counters since import: the wavefront and
+              delta kernels' launches and captured launches, fold()
+              calls refolded on the host
     """
-    from rafft_tpu_torch.engine import fold_torch, wavefront
+    from rafft_tpu_torch.engine import delta, fold_torch, wavefront
     return dict(
         spans={k: dict(calls=c, total_s=t / 1e9, self_s=s / 1e9)
                for k, (c, t, s) in _spans.items()},
         counters=dict(_counters), stage_ms=dict(_stage_ms),
         process={"wavefront.launches": wavefront.LAUNCHES,
                  "wavefront.captured": wavefront.CAPTURED,
+                 "delta.launches": delta.LAUNCHES,
+                 "delta.captured": delta.CAPTURED,
                  "fold.refolds": fold_torch.REFOLDS})
 
 

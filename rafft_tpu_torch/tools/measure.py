@@ -165,7 +165,7 @@ BUCKETS = (128, 256, 512, 1024, 2048, 4096)
 # functions FoldEngine.step calls, each wrapped from outside for its rise
 # of the peak (_stage_peaks); the profile phase reads the step's own stage
 # ranges
-STAGES = ("_candidate_delta", "_children", "eval_pt", "analyze_pt", "_regions",
+STAGES = ("candidate_delta", "eval_pt", "analyze_pt", "_regions",
           "_top_lags", "_member", "_first_occurrence", "_combo_pt",
           "wavefront_tables")
 MiB = 2 ** 20
@@ -316,6 +316,47 @@ def capture_kernel_call(eng, seqs, call_no=4, every=None, out=None):
     if not kept:
         raise AssertionError(f"the fold took fewer than {call_no} steps")
     return kept[0]
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(v) for v in x)
+    return x
+
+
+def capture_delta_calls(run):
+    """The positional arguments (cfg, dp, codes, n, keys, pt, loops,
+    rorder, rpos, ws), tensors cloned, of every call of the delta stage's
+    wrapper (fold_torch.candidate_delta) while run() runs: one per fold
+    step run eagerly (a graph replay calls no wrapper)."""
+    from rafft_tpu_torch.engine import fold_torch as FT
+    real, calls = FT.candidate_delta, []
+
+    def spy(*args, **kw):
+        calls.append(_clone(args))
+        return real(*args, **kw)
+
+    FT.candidate_delta = spy
+    try:
+        run()
+    finally:
+        FT.candidate_delta = real
+    return calls
+
+
+def delta_step_calls(eng, seqs, steps):
+    """capture_delta_calls over the first `steps` fold steps of `seqs`
+    (at most eng.B of them) on `eng`, run eagerly from the unfolded
+    root."""
+    def run():
+        st = eng.init_state(seqs[: eng.B])
+        for _ in range(steps):
+            st = eng.step(st)
+    return capture_delta_calls(run)
 
 
 STEP_KEYS = ("pt", "energy", "active", "rorder", "seen_h1", "seen_h2",

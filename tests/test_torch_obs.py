@@ -72,7 +72,8 @@ def test_nothing_is_recorded_without_a_profiler():
     assert snap["spans"] == {} and snap["counters"] == {}
     assert snap["stage_ms"] == {}
     assert set(snap["process"]) == {"wavefront.launches",
-                                    "wavefront.captured", "fold.refolds"}
+                                    "wavefront.captured", "delta.launches",
+                                    "delta.captured", "fold.refolds"}
 
 
 def test_run_stream_records_every_stage_once_per_round(monkeypatch):
@@ -322,6 +323,7 @@ def test_graph_stage_clocks_cover_the_replays_kernels():
     eng = FT.FoldEngine(cfg, B=4, device="cuda")
     plain = sorted(eng.run_stream(seqs, 4))          # captures the graph
     assert ("_advance", 4) in eng._graphs
+    before = obs.snapshot()["process"]
     traced, prof, snap = _profiled(lambda: sorted(eng.run_stream(seqs, 4)),
                                    cuda=True)
     assert traced == plain
@@ -334,6 +336,11 @@ def test_graph_stage_clocks_cover_the_replays_kernels():
     assert c["stream.cplx_budget"] == cfg.CPLX
     assert c["stream.flagged"] == sum(f != 0 for _, _, f in traced)
     assert 0 < c["stream.cplx_need_peak"] <= cfg.K * cfg.R * cfg.M
+    # every round of a replay ran both kernels, as the process counters say
+    p = snap["process"]
+    assert p["delta.captured"] > 0 and p["wavefront.captured"] > 0
+    for k in ("delta.launches", "wavefront.launches"):
+        assert p[k] - before[k] == c["stream.rounds"], k
     kernel_s = _graph_kernel_s(prof)
     assert kernel_s > 0
     total_s = sum(stage_ms.values()) / 1e3
