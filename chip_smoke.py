@@ -240,7 +240,7 @@ the timed folds of phases 5, 7, 7b and 7c, the sweeps and the CLI; the
 folds that hold every step's kernel tensors to the layout contract, or
 capture one step's (tools/measure.py:capture_kernel_call), run eagerly
 beside them, since a replay calls no wrapper.  A replay counts the
-kernel's launches it holds (wavefront.count_replay), one per round.
+kernel's launches it holds (_build.Kernel.count_replay), one per round.
 The default run's earlier phases are uncut; what was cut to keep it short
 is in the later ones: one seeded layout and one timed call of the plain
 version at N=2048 and 4096, 16, 16, 8 and 4 rows in the k200 phase, one pass

@@ -38,13 +38,14 @@ from rafft_tpu_torch.energy.eval_torch import (TABLES, _ext_stem_v,
                                                _hairpin_v, _int_loop_v,
                                                _ml_stem, _ptype, take)
 
-# launches of the CUDA kernel (the plain version does not count).  A call
-# inside a CUDA graph capture launches nothing: it adds to CAPTURED, and
-# whoever replays the graph adds the launches it holds (count_replay)
+# launches of the CUDA kernel, and launches recorded into CUDA graph
+# captures (the plain version does not count; see _build.Kernel)
 LAUNCHES = 0
 CAPTURED = 0
-# argument signatures the wrapper has checked (see candidate_delta)
-_CHECKED = set()
+KERNEL = _build.Kernel(
+    "delta", __name__, "rafft_delta",
+    [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+     ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 OUT_KEYS = ("delta", "unsupported", "has", "p0")
 LOOP_KEYS = ("is_open", "enclose", "mls", "exts", "branches", "loop_e")
@@ -274,18 +275,6 @@ def delta_work(shape, N, tables_numel) -> dict:
 # the wrapper
 # ======================================================================
 
-def _lib():
-    lib = _build.load("delta")
-    if not getattr(lib, "_rafft_typed", False):
-        i = ctypes.c_int
-        lib.rafft_delta.argtypes = [ctypes.POINTER(ctypes.c_void_p), i,
-                                    ctypes.POINTER(ctypes.c_int), i, i, i,
-                                    i, i, i, i, ctypes.c_void_p]
-        lib.rafft_delta.restype = ctypes.c_int
-        lib._rafft_typed = True
-    return lib
-
-
 def _check_args(cfg, dp, codes, n, keys, pt, loops, rorder, rpos, ws, C):
     """The wrapper's checks of device, type, shape and contiguity (host
     metadata only: no device read)."""
@@ -338,22 +327,13 @@ def candidate_delta(cfg, dp, codes, n, keys, pt, loops, rorder, rpos, ws,
     but inside a CUDA graph capture, which records the launch only:
     there the wrapper raises unless a call of the same signature (the
     shapes, device and C) was checked before the capture."""
-    global LAUNCHES, CAPTURED
     dev = codes.device
-    if dev.type == "cpu":
+    if not KERNEL.on_card(dev):
         return _candidate_delta(cfg, dp, codes, n, keys, pt, loops, rorder,
                                 rpos, ws, C)
-    if dev.type != "cuda":
-        raise ValueError(f"candidate_delta: unsupported device {dev}")
-    capturing = torch.cuda.is_current_stream_capturing()
-    sig = (tuple(rpos.shape), tuple(ws["max_nb"].shape), dev, C)
-    if not capturing:
-        _check_args(cfg, dp, codes, n, keys, pt, loops, rorder, rpos, ws, C)
-        _CHECKED.add(sig)
-    elif sig not in _CHECKED:
-        raise RuntimeError("candidate_delta: a call of an unchecked "
-                           f"signature {sig} inside a CUDA graph capture; "
-                           "make one call before the capture")
+    KERNEL.check((tuple(rpos.shape), tuple(ws["max_nb"].shape), dev, C),
+                 _check_args, cfg, dp, codes, n, keys, pt, loops, rorder,
+                 rpos, ws, C)
     shape = ws["max_nb"].shape
     B, K, R, M = shape
     out = [torch.empty(shape, dtype=torch.bool if k in ("unsupported", "has")
@@ -363,21 +343,6 @@ def candidate_delta(cfg, dp, codes, n, keys, pt, loops, rorder, rpos, ws,
             *out, *(getattr(dp, k) for k in TABLES)]
     arr = (ctypes.c_void_p * len(ptrs))(*(x.data_ptr() for x in ptrs))
     header = (ctypes.c_int * len(HEADER))(*kernel_header(dp))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = _lib().rafft_delta(arr, len(ptrs), header, len(HEADER),
-                                 B * K * R, K, R, M, codes.shape[-1], C,
-                                 stream)
-    if err != 0:
-        raise RuntimeError(f"delta kernel launch failed: cudaError {err}")
-    if capturing:
-        CAPTURED += 1
-    else:
-        LAUNCHES += 1
+    KERNEL.launch(dev, arr, len(ptrs), header, len(HEADER), B * K * R, K, R,
+                  M, codes.shape[-1], C)
     return tuple(out)
-
-
-def count_replay(n):
-    """A CUDA graph that holds n launches of the kernel was replayed."""
-    global LAUNCHES
-    LAUNCHES += n

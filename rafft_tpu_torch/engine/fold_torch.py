@@ -43,7 +43,13 @@ What differs from the JAX engine:
   engine.  graphs=False runs the same code eagerly (the CPU path, and
   the plain version the graphs are held to).  fold and fold_one keep
   their engines between calls (_kept_engine), as the jitted programs
-  stay compiled.
+  stay compiled;
+* a fold of run_stream leaves the card one way only: the graph's swap
+  banks it, with its flags, into the lane's output buffer, which the
+  host reads once per replay.  When the draw is exhausted a lane gets an
+  empty shadow sequence, so its last fold is banked the same way, a
+  fold at the step limit at that limit; the JAX engine's host reads
+  such lanes' live state after the replay and retires them itself.
 """
 
 from __future__ import annotations
@@ -58,14 +64,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rafft_tpu_torch import obs
+from rafft_tpu_torch import _build, obs
 from rafft_tpu_torch.energy.params import encode_sequence
 from rafft_tpu_torch.scan.correlate import correlate_fft
 from rafft_tpu_torch.scan.encode import weight_matrix
 from rafft_tpu_torch.struct import Structure, dot_bracket
 from rafft_tpu_torch.energy.eval_torch import (_kmer_keys, analyze_pt,
                                                device_params, eval_pt, take)
-from rafft_tpu_torch.engine import delta as DL
 from rafft_tpu_torch.engine import wavefront as WT
 # the stage delta: the wrapper, and its plain version for the tools
 from rafft_tpu_torch.engine.delta import (_candidate_delta,  # noqa: F401
@@ -441,17 +446,6 @@ class FoldEngine:
         st["cplx_need"] = torch.where(mask, 0, state["cplx_need"])
         st["enum_suspect"] = torch.where(mask, 0, state["enum_suspect"])
         return st
-
-    def refill(self, state, slots, seqs):
-        """Host API: place `seqs` into batch slots `slots` (lists)."""
-        B = self.B
-        mask = np.zeros(B, bool)
-        mask[list(slots)] = True
-        placed = [None] * B
-        for b, s in zip(slots, seqs):
-            placed[b] = s
-        codes, n = self._encode(placed, B)
-        return self._refill(state, self._t(mask), self._t(codes), self._t(n))
 
     def _hash(self, pt):
         v = (pt + 2).long()
@@ -941,19 +935,19 @@ class FoldEngine:
         graph, launches, stages = self._graphs[key]
         with obs.span("engine.launch"):
             graph.replay()
-        WT.count_replay(launches[0])
-        DL.count_replay(launches[1])
+        for kernel, n in launches.items():
+            kernel.count_replay(n)
         if obs.recording():
             self._pending[key] = stages
         return dict(st)
 
     def _capture(self, body, G):
         """Warm up, then capture body(static state, G) and its copy back
-        into the static buffers.  Returns (graph, the wavefront and delta
-        kernels' launches in it, its stage clock: obs.GraphStages, whose timing events the graph
-        records at every replay, whether or not the profiler records; the
-        copy back is timed with the body's last stage, the final swap or
-        the pool)."""
+        into the static buffers.  Returns (graph, {hand kernel
+        (_build.KERNELS): its launches in the graph}, its stage clock:
+        obs.GraphStages, whose timing events the graph records at every
+        replay, whether or not the profiler records; the copy back is
+        timed with the body's last stage, the final swap or the pool)."""
         st = self._static
         with obs.span("engine.warmup"):
             cur = torch.cuda.current_stream(self.device)
@@ -965,7 +959,7 @@ class FoldEngine:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        before = WT.CAPTURED, DL.CAPTURED
+        before = {kernel: kernel.captured for kernel in _build.KERNELS}
         host, stages = self._stages, obs.GraphStages()
         self._stages = stages
         try:
@@ -979,7 +973,8 @@ class FoldEngine:
                 del out      # nothing of the capture stays live in the pool
         finally:
             self._stages = host
-        launches = WT.CAPTURED - before[0], DL.CAPTURED - before[1]
+        launches = {kernel: kernel.captured - n
+                    for kernel, n in before.items()}
         return graph, launches, stages
 
     def _read_stages(self):
@@ -1008,21 +1003,30 @@ class FoldEngine:
             return st
 
     _OUT_KEYS = ("out_pt", "out_E", "out_act", "out_n", "out_seqid",
-                 "out_done", "out_flag", "out_cplx_need", "out_valid", "done",
-                 "seqid", "lane_steps")
+                 "out_flag", "out_cplx_need", "out_valid", "done", "seqid",
+                 "lane_steps")
 
     def run_stream(self, seqs, G: int = 4, needs=None):
         """Continuous-batching fold over a sequence list.
 
         Yields (index, rows, flagged) as folds finish, where rows is the
         final beam [(dot_bracket, energy_kcal)] best-first and flagged
-        the FLAG_* cause bitmask; `needs`, a dict where given, gets each
-        yielded fold's cplx_need (the most complex candidates any step
-        of it had: it overflowed the budget CPLX where above it) under
-        its index.  Finished lanes swap onto preloaded
-        shadow sequences between steps; the host drains banked results
-        and reloads shadows every G steps, reading `done` and the output
-        buffers once per G steps.  On a card (graphs) the G steps are one
+        the FLAG_* cause bitmask (flags()); `needs`, a dict where given,
+        gets each yielded fold's cplx_need (the most complex candidates
+        any step of it had: it overflowed the budget CPLX where above it)
+        under its index.
+
+        Every lane that folds a sequence holds a shadow: the draw's next
+        sequence, or once the draw is exhausted an empty one (n 0, seqid
+        -1).  Between steps, a lane whose fold finished (or hit the step
+        limit) banks it into its output buffer with its flags and
+        restarts on its shadow (_swap); a lane restarted on an empty
+        shadow folds nothing more.  Every G steps the host reads the
+        output buffers and the lanes' done, seqid and lane_steps in one
+        host read (_fetch), yields each banked fold, then clears those
+        buffers and loads the banked lanes' next shadows (_drain_load).
+        So every fold leaves by the output buffers, and the host edits
+        the state only there.  On a card (graphs) the G steps are one
         CUDA graph replay on the engine's static state buffers, which
         the host's updates are copied into; else every state update
         builds new tensors and drops the old ones at once (what buffer
@@ -1040,10 +1044,16 @@ class FoldEngine:
         cfg, B = self.cfg, self.B
         LIM = 2 * cfg.max_steps
         nseq = len(seqs)
-        state = self.init_state(seqs[:B], seqids=list(range(min(B, nseq))))
+        seqid = np.arange(B)
+        seqid[nseq:] = -1
+        state = self.init_state(seqs[:B], seqids=seqid[:nseq])
         nxt = min(B, nseq)
 
-        def loader(lanes):
+        def loader(lanes, seqid):
+            """Shadows for `lanes`, whose shadow slots are free: the
+            draw's next sequences, then an empty one for each lane that
+            still folds a sequence (seqid >= 0), so that the graph banks
+            that fold; a lane that folds none gets none."""
             nonlocal nxt
             load = np.zeros(B, bool)
             placed = [None] * B
@@ -1052,6 +1062,8 @@ class FoldEngine:
                 if nxt < nseq:
                     placed[b], sid[b], load[b] = seqs[nxt], nxt, True
                     nxt += 1
+                else:
+                    load[b] = seqid[b] >= 0
             with obs.span("stream.encode"):
                 codes, n = self._encode(placed, B)
             return load, codes, n, sid
@@ -1067,7 +1079,7 @@ class FoldEngine:
                         obs.count("stream.flagged." + cause)
                 obs.high("stream.cplx_need_peak", need)
 
-        load, codes_new, n_new, sid_new = loader(range(B))
+        load, codes_new, n_new, sid_new = loader(range(B), seqid)
         state = self._drain_load(state, self._t(np.zeros(B, bool)),
                                  self._t(load), self._t(codes_new),
                                  self._t(n_new), self._t(sid_new))
@@ -1075,7 +1087,7 @@ class FoldEngine:
         emitted = 0
         while emitted < nseq:
             state = advance(state, G)
-            (o_pt, o_E, o_act, o_n, o_sid, o_done, o_flag, o_need, o_valid,
+            (o_pt, o_E, o_act, o_n, o_sid, o_flag, o_need, o_valid,
              l_done, l_sid, l_steps) = self._fetch(state, self._OUT_KEYS)
             if obs.recording():
                 obs.high("stream.cplx_budget", cfg.CPLX)
@@ -1084,47 +1096,18 @@ class FoldEngine:
                 live = (l_sid >= 0) & ~l_done & (l_steps < LIM)
                 obs.count("stream.live_lanes", int(live.sum()))
                 obs.count("stream.lanes", B)
-            fresh = np.where(o_valid)[0]
-            clear = np.zeros(B, bool)
+            fresh = np.flatnonzero(o_valid)
             for b in fresh:
                 with obs.span("engine.rows"):
                     rows = self._rows_from(o_pt[b], o_E[b], o_act[b], o_n[b])
-                flag = int(o_flag[b]) | (0 if o_done[b] else FLAG_STEPLIM)
-                tally(int(o_sid[b]), flag, int(o_need[b]))
-                yield int(o_sid[b]), rows, flag
+                tally(int(o_sid[b]), int(o_flag[b]), int(o_need[b]))
+                yield int(o_sid[b]), rows, int(o_flag[b])
                 emitted += 1
-                clear[b] = True
-            load, codes_new, n_new, sid_new = loader(fresh)
-            if clear.any() or load.any():
+            if len(fresh):
+                load, codes_new, n_new, sid_new = loader(fresh, l_sid)
                 state = self._drain_load(
-                    state, self._t(clear), self._t(load), self._t(codes_new),
-                    self._t(n_new), self._t(sid_new))
-            elif len(fresh) == 0:
-                # end-game: no banked results and no shadows left —
-                # remaining folds finish in live lanes
-                live = (l_sid >= 0) & (l_done | (l_steps >= LIM))
-                if not live.any():
-                    continue
-                pt_l, E_l, act_l, n_l, cd_l, es_l, need_l = self._fetch(
-                    state, ("pt", "energy", "active", "n", "cplx_dropped",
-                            "enum_suspect", "cplx_need"))
-                kill = np.zeros(B, bool)
-                for b in np.where(live)[0]:
-                    with obs.span("engine.rows"):
-                        rows = self._rows_from(pt_l[b], E_l[b], act_l[b],
-                                               n_l[b])
-                    flag = (int(es_l[b]) | (FLAG_CPLX if cd_l[b] > 0 else 0)
-                            | (0 if l_done[b] else FLAG_STEPLIM))
-                    tally(int(l_sid[b]), flag, int(need_l[b]))
-                    yield int(l_sid[b]), rows, flag
-                    emitted += 1
-                    kill[b] = True
-                # retire emitted lanes (an empty sequence, seqid -1)
-                killt = self._t(kill)
-                state = self._refill(state, killt,
-                                     torch.zeros_like(state["codes"]),
-                                     torch.zeros_like(state["n"]))
-                state["seqid"] = torch.where(killt, -1, state["seqid"])
+                    state, self._t(o_valid), self._t(load),
+                    self._t(codes_new), self._t(n_new), self._t(sid_new))
 
     def _fetch(self, state, keys):
         """The int32 and bool tensors `keys` of `state` as numpy arrays, in
@@ -1358,6 +1341,7 @@ def fold_refusal(sequence, nb_mode, max_stack, cfg: EngineConfig) -> str | None:
 # fold() calls answered by fold_cpu: folds the engine flagged, and inputs
 # the engine refuses or no engine is built for
 REFOLDS = 0
+obs.process_counter("fold.refolds", lambda: REFOLDS)
 
 
 def fold(sequence, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,

@@ -56,13 +56,13 @@ from rafft_tpu_torch import _build
 MASK32 = 0xFFFFFFFF
 KEYS = ("cor_raw", "max_nb", "max_i", "max_j", "best_sE", "hd1", "hd2")
 
-# launches of the CUDA kernel (the plain versions do not count).  A call
-# inside a CUDA graph capture launches nothing: it adds to CAPTURED, and
-# whoever replays the graph adds the launches it holds (count_replay)
+# launches of the CUDA kernel, and launches recorded into CUDA graph
+# captures (the plain versions do not count; see _build.Kernel)
 LAUNCHES = 0
 CAPTURED = 0
-# argument signatures (shapes, device, min_hp) the wrapper has checked
-_CHECKED = set()
+KERNEL = _build.Kernel("wavefront", __name__, "rafft_wavefront",
+                       [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
 
 
 class SmallTables(NamedTuple):
@@ -387,16 +387,6 @@ def check_layout(cfg, tabs, rcodes, rpos, mlen, z1row, z2row):
         raise ValueError("wavefront layout contract broken: " + "; ".join(bad))
 
 
-def _lib():
-    lib = _build.load("wavefront")
-    if not getattr(lib, "_rafft_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rafft_wavefront.argtypes = [p] * 14 + [i, i, i, p]
-        lib.rafft_wavefront.restype = ctypes.c_int
-        lib._rafft_typed = True
-    return lib
-
-
 def empty_tables(shape, device):
     """The seven output tables of a call on rcodes of `shape` [..., R, N],
     uninitialised: the kernel writes every entry."""
@@ -453,43 +443,19 @@ def wavefront_tables(cfg, tabs, rcodes, rpos, mlen, z1row, z2row, out=None):
     only: there the wrapper raises unless a call of the same signature
     (shape, device, min_hp, whether `out` is given) was checked before
     the capture."""
-    global LAUNCHES, CAPTURED
     dev = rcodes.device
-    if dev.type == "cpu":
+    if not KERNEL.on_card(dev):
         return wavefront_tables_ref(cfg, tabs, rcodes, rpos, mlen,
                                     z1row, z2row)
-    if dev.type != "cuda":
-        raise ValueError(f"wavefront_tables: unsupported device {dev}")
-    capturing = torch.cuda.is_current_stream_capturing()
-    sig = (tuple(rcodes.shape), dev, cfg.min_hp, out is None)
-    if not capturing:
-        _check_args(cfg, tabs, rcodes, rpos, mlen, z1row, z2row, out)
-        _CHECKED.add(sig)
-    elif sig not in _CHECKED:
-        raise RuntimeError("wavefront_tables: a call of an unchecked "
-                           f"signature {sig} inside a CUDA graph capture; "
-                           "make one call before the capture")
+    KERNEL.check((tuple(rcodes.shape), dev, cfg.min_hp, out is None),
+                 _check_args, cfg, tabs, rcodes, rpos, mlen, z1row, z2row,
+                 out)
     *lead, R, N = rcodes.shape
     regions = (int(np.prod(lead)) if lead else 1) * R
     if out is None:
         out = empty_tables(rcodes.shape, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = _lib().rafft_wavefront(
-            rcodes.data_ptr(), rpos.data_ptr(), mlen.data_ptr(),
-            z1row.data_ptr(), z2row.data_ptr(), tabs.W.data_ptr(),
-            tabs.SE.data_ptr(), *(out[k].data_ptr() for k in KEYS),
-            regions, N, cfg.min_hp, stream)
-    if err != 0:
-        raise RuntimeError(f"wavefront kernel launch failed: cudaError {err}")
-    if capturing:
-        CAPTURED += 1
-    else:
-        LAUNCHES += 1
+    KERNEL.launch(dev, rcodes.data_ptr(), rpos.data_ptr(), mlen.data_ptr(),
+                  z1row.data_ptr(), z2row.data_ptr(), tabs.W.data_ptr(),
+                  tabs.SE.data_ptr(), *(out[k].data_ptr() for k in KEYS),
+                  regions, N, cfg.min_hp)
     return out
-
-
-def count_replay(n):
-    """A CUDA graph that holds n launches of the kernel was replayed."""
-    global LAUNCHES
-    LAUNCHES += n

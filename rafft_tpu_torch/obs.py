@@ -19,10 +19,11 @@ nothing more when the profiler is off.  While it records:
 
 `snapshot()` sums what was recorded since the last `clear()`: each span's
 calls, total and self seconds (the span less its child spans), the
-counters, the stages' device ms, and the program's process-wide counters
-(the wavefront and delta kernels' launches and captures, fold()'s
-refolds).  The ranges themselves are the profiler's.  The trace is one
-per process, like the profiler it follows; spans nest per thread.
+counters, the stages' device ms, and the program's process-wide counters,
+which their own modules register (`process_counter`: each hand kernel's
+launches and captures, fold()'s refolds).  The ranges themselves are the
+profiler's.  The trace is one per process, like the profiler it follows;
+spans nest per thread.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ recording = torch.autograd._profiler_enabled
 _spans = defaultdict(lambda: [0, 0, 0])    # name -> [calls, total_ns, self_ns]
 _counters = defaultdict(int)
 _stage_ms = defaultdict(float)
+_process = {}                               # name -> its reader
 _local = threading.local()
 
 
@@ -102,6 +104,12 @@ def high(name, value):
     it holds the largest value given since the last clear()."""
     if recording() and (name not in _counters or value > _counters[name]):
         _counters[name] = value
+
+
+def process_counter(name, read):
+    """Register the process-wide counter `name`, which counts whether or
+    not the profiler records: snapshot()["process"][name] is read()."""
+    _process[name] = read
 
 
 class HostStages:
@@ -177,20 +185,15 @@ def snapshot():
     spans     {name: {"calls", "total_s", "self_s"}}
     counters  {name: count, or a high-water counter's largest value}
     stage_ms  {stage: device ms} (graph replays only)
-    process   the program's counters since import: the wavefront and
-              delta kernels' launches and captured launches, fold()
+    process   the registered process-wide counters (process_counter):
+              each hand kernel's launches and captured launches, fold()
               calls refolded on the host
     """
-    from rafft_tpu_torch.engine import delta, fold_torch, wavefront
     return dict(
         spans={k: dict(calls=c, total_s=t / 1e9, self_s=s / 1e9)
                for k, (c, t, s) in _spans.items()},
         counters=dict(_counters), stage_ms=dict(_stage_ms),
-        process={"wavefront.launches": wavefront.LAUNCHES,
-                 "wavefront.captured": wavefront.CAPTURED,
-                 "delta.launches": delta.LAUNCHES,
-                 "delta.captured": delta.CAPTURED,
-                 "fold.refolds": fold_torch.REFOLDS})
+        process={k: read() for k, read in _process.items()})
 
 
 def clear():

@@ -1,31 +1,23 @@
 """Measure the port's fold path on one CUDA card, layer by layer.
 
-    python -m rafft_tpu_torch.tools.measure [--phases loops,headline,syncs,profile,kernel,walk,mfe,graph,obs,tail,kept,cplx]
+    python -m rafft_tpu_torch.tools.measure [--phases loops,profile,kernel,walk,mfe,graph,obs,tail,kept,cplx]
                                             [--passes 5] [--out DIR]
                                             [--max-stack 50] [--profile-buckets 256,512,1024]
 
 Run it from the root of a checkout: it measures the rafft_tpu_torch
 package that the checkout holds.  To compare two versions in one call,
 copy this file into the other checkout's rafft_tpu_torch/tools/ and run
-the same command from there; the loops and headline phases use only the
-API that the first port (the N=128 fold path) already had.
+the same command from there; the loops phase uses only the API that the
+first port (the N=128 fold path) already had.
 
 Phases (each prints lines tagged with its name):
   loops    - eval_pt and analyze_pt on valid nested pair tables at the
              shapes the step gives them in each bucket: the increase of
              the peak (max_memory_allocated after a reset, over the
              inputs) and ms per call (CUDA events, mean of 10 calls);
-  headline - the N=128 headline of chip_smoke.py (the first 64 journal
-             rows of <= 120 nt at B=16, after a 16-row warm-up), folded
-             `--passes` times by one engine: seconds and seq/s per pass;
-             every beam must equal the journal;
-  syncs    - per bucket at the sweep's configuration, on the eager path
-             (FoldEngine(graphs=False); so are profile and swap): device-to-host
-             reads per step (Tensor.__bool__, __int__ and item on CUDA
-             tensors), steps (= wavefront launches) and the share of the
-             wall spent in FoldEngine._rows_from;
   profile  - per bucket (--profile-buckets, default 256/512/1024, at
-             --max-stack K, default 50, the sweep's configuration),
+             --max-stack K, default 50, the sweep's configuration, on the
+             eager path, FoldEngine(graphs=False), as swap is),
              torch.profiler over run_stream after a warm-up; the step
              marks its stages itself (the ranges rafft.stage.<name> of
              rafft_tpu_torch/obs.py).  Before it, one unprofiled fold
@@ -572,31 +564,10 @@ HEADLINE = dict(N=128, K=50, M=100, R=16, V=4096, W=8, CPLX=512, S=16384,
                 max_branch=1000)
 
 
-def phase_headline(rows_all, passes):
-    from rafft_tpu_torch.engine.fold_torch import EngineConfig, FoldEngine
-    rows = [r for r in rows_all if len(r["seq"]) <= 120][:64]
-    seqs = [r["seq"] for r in rows]
-    eng = FoldEngine(EngineConfig(**HEADLINE), B=16, device="cuda")
-    for _ in eng.run_stream(seqs[:16]):
-        pass
-    for k in range(passes):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = list(eng.run_stream(seqs))
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        bad = [i for i, beam, flag in out if flag or beam != [
-            (db, float(e)) for db, e in rows[i]["beam"]]]
-        if bad or len(out) != len(rows):
-            raise AssertionError(f"headline rows {bad} differ from the journal")
-        log(f"[headline] pass {k}: {secs:.4f} s for {len(rows)} "
-            f"({len(rows) / secs:.3f} seq/s)")
-
-
 def _engine(N, K=K_BEAM, graphs=False):
     """The sweep's engine of bucket N at -n 100 -ms 50, or -n 200 -ms 200;
-    eager unless `graphs` (the syncs and profile phases count and wrap
-    the eager step's calls)."""
+    eager unless `graphs` (the profile phase wraps the eager step's
+    calls)."""
     from rafft_tpu_torch.engine.fold_torch import FoldEngine
     from rafft_tpu_torch.parallel.sweep import bucket_batch, bucket_config
     return FoldEngine(bucket_config(N, max(100, K), K, 1000), B=bucket_batch(16, N),
@@ -611,54 +582,6 @@ def _fold(eng, rows):
     if len(out) != len(rows):
         raise AssertionError("run_stream did not yield every row")
     return time.perf_counter() - t0
-
-
-SYNC_ROWS = {128: 32, 256: 32, 512: 16, 1024: 4}
-
-
-def phase_syncs(rows_all):
-    from rafft_tpu_torch.engine import fold_torch as FT
-    from rafft_tpu_torch.engine import wavefront as WT
-    counts = dict(bool=0, int=0, item=0, rows_from=0.0)
-    orig = {k: getattr(torch.Tensor, k) for k in ("__bool__", "__int__", "item")}
-    orig_rows = FT.FoldEngine._rows_from
-
-    def counter(key, fn):
-        def wrapped(self, *a):
-            if self.is_cuda:
-                counts[key] += 1
-            return fn(self, *a)
-        return wrapped
-
-    def rows_from(self, *a):
-        t0 = time.perf_counter()
-        out = orig_rows(self, *a)
-        counts["rows_from"] += time.perf_counter() - t0
-        return out
-
-    for N, count in SYNC_ROWS.items():
-        rows = bucket_rows(rows_all, N, count)
-        eng = _engine(N)
-        _fold(eng, rows[: eng.B])
-        counts.update(bool=0, int=0, item=0, rows_from=0.0)
-        WT.LAUNCHES = 0
-        torch.Tensor.__bool__ = counter("bool", orig["__bool__"])
-        torch.Tensor.__int__ = counter("int", orig["__int__"])
-        torch.Tensor.item = counter("item", orig["item"])
-        FT.FoldEngine._rows_from = rows_from
-        try:
-            secs = _fold(eng, rows)
-        finally:
-            for k, fn in orig.items():
-                setattr(torch.Tensor, k, fn)
-            FT.FoldEngine._rows_from = orig_rows
-        steps = WT.LAUNCHES
-        log(f"[syncs] N={N}: {len(rows)} seqs {secs:.3f} s "
-            f"({len(rows) / secs:.3f} seq/s); steps {steps}; bool reads "
-            f"{counts['bool']} ({counts['bool'] / steps:.2f}/step), int reads "
-            f"{counts['int']}, item reads {counts['item']}; _rows_from "
-            f"{counts['rows_from']:.3f} s "
-            f"({100 * counts['rows_from'] / secs:.2f}% of wall)")
 
 
 PROFILE_ROWS = {128: 16, 256: 16, 512: 8, 1024: 4}
@@ -1492,7 +1415,7 @@ def phase_mfe(rows_all, passes):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="loops,headline,syncs,profile")
+    ap.add_argument("--phases", default="loops,profile")
     ap.add_argument("--passes", type=int, default=5)
     ap.add_argument("--out", help="directory for the profiler tables")
     ap.add_argument("--against", help="another checkout, for the swap phase")
@@ -1514,10 +1437,6 @@ def main(argv=None):
         t0 = time.perf_counter()
         if ph == "loops":
             phase_loops()
-        elif ph == "headline":
-            phase_headline(rows, args.passes)
-        elif ph == "syncs":
-            phase_syncs(rows)
         elif ph == "profile":
             phase_profile(rows, args.out, args.max_stack,
                           [int(b) for b in args.profile_buckets.split(",")])

@@ -201,7 +201,7 @@ def test_wrapper_refuses_other_devices(cpu_steps):
 
 def test_replays_count():
     before = DL.LAUNCHES
-    DL.count_replay(4)
+    DL.KERNEL.count_replay(4)
     assert DL.LAUNCHES == before + 4
     DL.LAUNCHES = before
 

@@ -82,15 +82,18 @@ def test_graphed_advance_matches_eager(case):
 
 
 @pytest.mark.cuda
-def test_graphed_stream_and_run_match_eager():
+@pytest.mark.parametrize("count", [7, 2])
+def test_graphed_stream_and_run_match_eager(count):
     """run_stream and run with graphs give the eager engine's beams and
-    flags."""
+    flags, on more sequences than the 3 lanes and on fewer."""
     _card()
     cfg = CFG64
-    seqs = _random(5, 7, 30, 65)
+    seqs = _random(5, 7, 30, 65)[:count]
     eager = FT.FoldEngine(FT.EngineConfig(**cfg), B=3, graphs=False)
     graph = FT.FoldEngine(FT.EngineConfig(**cfg), B=3)
-    assert sorted(graph.run_stream(seqs)) == sorted(eager.run_stream(seqs))
+    got = sorted(graph.run_stream(seqs))
+    assert [i for i, _, _ in got] == list(range(count))
+    assert got == sorted(eager.run_stream(seqs))
     beams_g, st_g = graph.run(seqs[:3])
     beams_e, st_e = eager.run(seqs[:3])
     assert beams_g == beams_e

@@ -94,6 +94,34 @@ def test_port_imports_and_folds_without_jax():
     assert out.stdout.startswith("OK ")
 
 
+OBS_SCRIPT = r"""
+import sys
+import types
+# the package root imports the engine (rafft_tpu_torch.fold): stand in an
+# empty root, so what loads is obs's own imports
+root = types.ModuleType("rafft_tpu_torch")
+root.__path__ = [sys.argv[1]]
+sys.modules["rafft_tpu_torch"] = root
+import rafft_tpu_torch.obs as obs
+snap = obs.snapshot()
+assert snap["process"] == {}, snap
+loaded = sorted(m for m in sys.modules if m.startswith("rafft_tpu_torch."))
+assert loaded == ["rafft_tpu_torch.obs"], loaded
+print("OK")
+"""
+
+
+def test_obs_imports_nothing_of_the_engine():
+    """The trace that every layer calls sits below them: importing obs
+    and taking a snapshot loads no rafft_tpu_torch.engine module (each
+    process counter registers from its own module)."""
+    pkg = os.path.join(REPO, "rafft_tpu_torch")
+    out = subprocess.run([sys.executable, "-c", OBS_SCRIPT, pkg], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("OK")
+
+
 def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
     for root, _dirs, files in os.walk(os.path.join(REPO, "rafft_tpu_torch")):

@@ -149,6 +149,16 @@ def test_self_time_is_the_span_less_its_children():
         assert 0 < s["self_s"] == s["total_s"], name
 
 
+def test_a_stream_reads_the_device_once_a_replay():
+    """Each replay's banked folds leave by its one read (_fetch), the
+    draw's last folds too: on two lanes over five sequences the last
+    folds finish after the draw is exhausted."""
+    out, _, snap = _profiled(_stream)
+    assert [i for i, _, _ in out] == list(range(len(SEQS)))
+    replays = snap["counters"]["stream.replays"]
+    assert snap["spans"]["engine.read"]["calls"] == replays > 0
+
+
 def test_live_lanes_are_at_most_the_lanes():
     _, _, snap = _profiled(lambda: _stream(B=3))
     c = snap["counters"]
