@@ -918,8 +918,10 @@ class FoldEngine:
         in it between replays (its outputs are copied into the static
         buffers), and the engine's graphs never run at the same time.
         A capture that fails raises; nothing falls back to the eager
-        path.  While the profiler records, the replay's stage clock waits
-        for the next host read (_read_stages)."""
+        path.  The replay's stage clock waits for the next host read
+        (_read_stages), which adds it to the trace if the profiler
+        records then: a replay launched just before the profiler starts
+        is read by the read that waits for it."""
         with obs.span("engine.copy_in"):
             if self._static is None:
                 self._static = {k: v.clone() for k, v in state.items()}
@@ -937,8 +939,7 @@ class FoldEngine:
             graph.replay()
         for kernel, n in launches.items():
             kernel.count_replay(n)
-        if obs.recording():
-            self._pending[key] = stages
+        self._pending[key] = stages
         return dict(st)
 
     def _capture(self, body, G):
@@ -1023,18 +1024,24 @@ class FoldEngine:
         restarts on its shadow (_swap); a lane restarted on an empty
         shadow folds nothing more.  Every G steps the host reads the
         output buffers and the lanes' done, seqid and lane_steps in one
-        host read (_fetch), yields each banked fold, then clears those
-        buffers and loads the banked lanes' next shadows (_drain_load).
-        So every fold leaves by the output buffers, and the host edits
-        the state only there.  On a card (graphs) the G steps are one
-        CUDA graph replay on the engine's static state buffers, which
-        the host's updates are copied into; else every state update
-        builds new tensors and drops the old ones at once (what buffer
-        donation buys the JAX engine).
+        host read (_fetch), clears those buffers and loads the banked
+        lanes' next shadows (_drain_load), launches the next G steps
+        while folds remain, and only then formats and yields each banked
+        fold from the host copies, while the card steps.  So every fold
+        leaves by the output buffers, and the host edits the state only
+        there.  A consumer that stops early leaves at most one launch in
+        flight, on the engine's stream, which the next use orders after.
+        On a card (graphs) the G steps are one CUDA graph replay on the
+        engine's static state buffers, which the host's updates are
+        copied into; else every state update builds new tensors and
+        drops the old ones at once (what buffer donation buys the JAX
+        engine).
 
         Traced (obs): the spans engine.rows (a fold's rows),
         stream.encode and stream.load of the host's drain, and the
-        counters stream.replays, stream.rounds, stream.folds,
+        counters stream.replays, stream.rounds, stream.ahead (a launch
+        after a read and before that read's yields: stream.replays - 1
+        over a draw consumed whole), stream.folds,
         stream.flagged (folds with a flag bit) and stream.flagged.<cause>
         (each bit by its FLAG_NAMES name), and after each read
         stream.live_lanes (lanes folding a sequence, neither done nor at
@@ -1085,8 +1092,9 @@ class FoldEngine:
                                  self._t(n_new), self._t(sid_new))
         advance = self._advance_graphed if self.graphs else self._advance
         emitted = 0
-        while emitted < nseq:
+        if nseq:
             state = advance(state, G)
+        while emitted < nseq:
             (o_pt, o_E, o_act, o_n, o_sid, o_flag, o_need, o_valid,
              l_done, l_sid, l_steps) = self._fetch(state, self._OUT_KEYS)
             if obs.recording():
@@ -1097,17 +1105,22 @@ class FoldEngine:
                 obs.count("stream.live_lanes", int(live.sum()))
                 obs.count("stream.lanes", B)
             fresh = np.flatnonzero(o_valid)
+            if len(fresh):
+                load, codes_new, n_new, sid_new = loader(fresh, l_sid)
+                state = self._drain_load(
+                    state, self._t(o_valid), self._t(load),
+                    self._t(codes_new), self._t(n_new), self._t(sid_new))
+            if emitted + len(fresh) < nseq:
+                # the fetched arrays are host copies: the next replay may
+                # overwrite the static buffers while they are formatted
+                state = advance(state, G)
+                obs.count("stream.ahead")
             for b in fresh:
                 with obs.span("engine.rows"):
                     rows = self._rows_from(o_pt[b], o_E[b], o_act[b], o_n[b])
                 tally(int(o_sid[b]), int(o_flag[b]), int(o_need[b]))
                 yield int(o_sid[b]), rows, int(o_flag[b])
                 emitted += 1
-            if len(fresh):
-                load, codes_new, n_new, sid_new = loader(fresh, l_sid)
-                state = self._drain_load(
-                    state, self._t(o_valid), self._t(load),
-                    self._t(codes_new), self._t(n_new), self._t(sid_new))
 
     def _fetch(self, state, keys):
         """The int32 and bool tensors `keys` of `state` as numpy arrays, in

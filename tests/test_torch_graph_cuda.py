@@ -100,6 +100,24 @@ def test_graphed_stream_and_run_match_eager(count):
     assert torch.equal(graph.flags(st_g), eager.flags(st_e))
 
 
+@pytest.mark.cuda
+def test_a_stream_closed_with_a_replay_in_flight_leaves_the_engine_sound():
+    """run_stream launches the next replay before it yields a read's
+    folds, so a consumer that closes the stream after its first yield
+    leaves a replay in flight on the static buffers; a whole draw on the
+    same engine then yields what a fresh engine yields."""
+    _card()
+    cfg = FT.EngineConfig(**CFG64)
+    first, second = _random(9, 8, 30, 65), _random(10, 7, 30, 65)
+    eng = FT.FoldEngine(cfg, B=3)
+    stream = eng.run_stream(first)
+    next(stream)
+    stream.close()
+    got = list(eng.run_stream(second))
+    assert got == list(FT.FoldEngine(cfg, B=3).run_stream(second))
+    assert sorted(i for i, _, _ in got) == list(range(len(second)))
+
+
 def _answer(final, steps=()):
     beam = lambda structs: [
         (s.str_struct, s.energy, set(s.pair_list),

@@ -323,12 +323,15 @@ def _graph_kernel_s(prof):
                if corr in launches and not name.startswith(obs.PREFIX)) / 1e9
 
 
+GRAPH_CFG = FT.EngineConfig(N=64, K=20, R=8, M=48, V=256, W=4, CPLX=128,
+                            S=4096, max_branch=256, max_steps=10)
+
+
 @pytest.mark.cuda
 def test_graph_stage_clocks_cover_the_replays_kernels():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: CUDA graphs have no CPU mode")
-    cfg = FT.EngineConfig(N=64, K=20, R=8, M=48, V=256, W=4, CPLX=128,
-                          S=4096, max_branch=256, max_steps=10)
+    cfg = GRAPH_CFG
     seqs = [s * 2 for s in SEQS] * 4
     eng = FT.FoldEngine(cfg, B=4, device="cuda")
     plain = sorted(eng.run_stream(seqs, 4))          # captures the graph
@@ -355,3 +358,31 @@ def test_graph_stage_clocks_cover_the_replays_kernels():
     assert kernel_s > 0
     total_s = sum(stage_ms.values()) / 1e3
     assert total_s >= kernel_s, (total_s, kernel_s)
+
+
+@pytest.mark.cuda
+def test_a_slice_begun_mid_stream_times_every_round_it_reads():
+    """A profiler started between two yields, after a synchronize, as
+    the benchmark's traced slice starts, finds the next replay launched
+    already (run_stream launches it before it yields): the read that
+    waits for that replay reads its stage clock too, so every round the
+    slice's reads count was timed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA graphs have no CPU mode")
+    seqs = [s * 2 for s in SEQS] * 4
+    eng = FT.FoldEngine(GRAPH_CFG, B=4, device="cuda")
+    plain = list(eng.run_stream(seqs, 4))            # captures the graph
+    stream = eng.run_stream(seqs, 4)
+    got = [next(stream)]
+
+    def some():
+        got.extend(next(stream) for _ in range(len(seqs) // 2))
+        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    _, _, snap = _profiled(some, cuda=True)
+    got += list(stream)
+    assert got == plain
+    c = snap["counters"]
+    assert c["stream.rounds"] > 0
+    assert c["stage.rounds"] == c["stream.rounds"] == 4 * c["stream.replays"]
+    assert c["stream.ahead"] > 0
