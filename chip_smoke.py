@@ -11,7 +11,7 @@ result line):
                 spills;
   3. kernel   - at the shapes of every bucket's fold step (N=128: 16 x 50
                 beam rows, R=16; N=256: 16 x 50, R=16; N=512: 8 x 50,
-                R=16; N=1024: 4 x 50, R=32; N=2048: 2 x 50, R=32; N=4096:
+                R=24; N=1024: 4 x 50, R=32; N=2048: 2 x 50, R=32; N=4096:
                 1 x 50, R=32; and N=128 at K=200: 16 x 200, R=16), all seven
                 kernel tables equal the plain PyTorch version on seeded
                 random and degenerate layouts (two layouts up to N=1024
@@ -57,9 +57,21 @@ result line):
                 and 1024 buckets (bucket_config, bucket_batch(16, N)) over
                 the first rows of each bucket and its flagged journal
                 rows: unflagged rows equal the journal with flag 0, and
-                flagged rows carry the journal's flag bits; the kernel on
-                one real step of each bucket beside its bound, and the
-                same checks on one more fold of the flagged rows alone;
+                flagged rows carry the journal's flag bits, but r_slots
+                at 512 (_want_flag: the port's R=24 there holds journal
+                rows 2268 and 2269, which the JAX sweep's 16 flagged, so
+                they fold unflagged to the journal's beams, the JAX
+                sweep's CPU refold); the kernel on one real step of each
+                bucket beside its bound, and the same checks on one more
+                fold of the journal's flagged rows alone;
+  7a. b512    - the corpus's 257-512 nt band at -n 100 -ms 50 as the
+                sweep folds it: all 252 journal rows of the 512 bucket
+                through run_stream at bucket_config(512, 100, 50, 1000)
+                (R=24, W=24, CPLX=1024), B=8, graphed: no row flagged,
+                every beam the journal's or, on the journal's flagged
+                rows, the port's fold_cpu's, folded on the host's cores
+                meanwhile; prints seq/s, the peak, and the quantiles of
+                r_need and cplx_need beside R and CPLX;
   7b. k200    - run_stream at bucket_config(N, 200, 200, 1000), B =
                 bucket_batch(16, N), over the first 16 journal rows of <= 120
                 nt (N=128, B=16: 3,200 beam rows), the first 16 of the 256
@@ -78,11 +90,13 @@ result line):
                 whole tables, beside its bound;
   7d. delta   - the delta kernel (csrc/delta.cu) against its plain
                 version (engine/delta.py:_candidate_delta), all four
-                outputs on every lane, on the first four fold steps of 16
-                journal rows of 65-128 nt at the two stream cells' shapes
-                (bucket_config(128, 100, 50, 1000) and (128, 200, 200,
-                1000), B=16); on the fourth step the kernel's device time
-                (CUDA events, calls enqueued ahead), the plain version's,
+                outputs on every lane, on the first four fold steps of
+                the first B journal rows of the band at each stream
+                cell's shape (65-128 nt at bucket_config(128, 100, 50,
+                1000) and (128, 200, 200, 1000), B=16; 257-512 nt at
+                (512, 100, 50, 1000), B=8, R=24); on the fourth step the
+                kernel's device time (CUDA events, calls enqueued ahead),
+                the plain version's,
                 and the kernel's bound (delta_work's bytes over 3.35
                 TB/s); then the 1,894 rows of 65-128 nt of
                 sweep_200n200_tpu.ckpt.jsonl through run_stream at (128,
@@ -153,7 +167,7 @@ result line):
                 buckets at the sweep's configurations): every fold equals
                 the journal (beam, energies and flag 0) or, on journal
                 rows 443, 567, 947 and 1262, the committed oracle beam; a
-                flagged row carries the journal's flag bits; the line
+                flagged row carries its flag bits (as in phase 7); the line
                 covers the 2,294 journal rows and names the card, and is
                 printed prefixed `bench:`.  Then tools/bench_full.py's
                 batch scan (the headline rows at B = 16, 32, 64: seq/s and
@@ -309,7 +323,7 @@ from rafft_tpu_torch.tools.measure import (K200_SWEEP, KERNEL_SHAPES,
                                            GRAPH_G, graph_cell, pool_bytes,
                                            kernel_bound, mfe_bucket_rows,
                                            mfe_profile, nested_tables,
-                                           seeded_kernel_args,
+                                           quantiles, seeded_kernel_args,
                                            seeded_sequence)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -637,18 +651,38 @@ def phase_weights(refs, rows_all):
     return launches
 
 
+def jax_region_slots(N):
+    """The region slots of the JAX sweep that wrote the journal
+    (rafft_tpu/parallel/sweep.py), which FT.region_slots widens at 512."""
+    return 16 if N <= 512 else 32
+
+
+def _want_flag(r):
+    """The flag bits the port's sweep gives journal row `r`: the
+    journal's, written by the JAX sweep, but r_slots where the port's
+    bucket holds more region slots than that sweep's (region_slots: 24
+    at 512 against 16).  A journal row flagged only there folds
+    unflagged, and its journal beam, the JAX sweep's CPU refold, is
+    fold_cpu's."""
+    N = TS.bucket_of(len(r["seq"]), TS.DEFAULT_BUCKETS)
+    if FT.region_slots(N) > jax_region_slots(N):
+        return r["flagged"] & ~FT.FLAG_RSLOTS
+    return r["flagged"]
+
+
 def _stream_check(rows, out):
     """What run_stream yielded over journal `rows`: every row once, its
-    beam the journal's with flag 0, or for a flagged row the journal's
-    flag bits (its journal beam came from the CPU refold)."""
+    beam the journal's with flag 0, or for a flagged row its flag bits
+    (_want_flag; its journal beam came from the CPU refold)."""
     if sorted(i for i, _, _ in out) != list(range(len(rows))):
         raise AssertionError("run_stream did not yield every sequence once")
     bad = []
     for idx, beam, flag in out:
         r = rows[idx]
-        if r["flagged"]:
-            if flag != r["flagged"]:
-                bad.append((idx, flag, r["flagged"]))
+        want = _want_flag(r)
+        if want:
+            if flag != want:
+                bad.append((idx, flag, want))
         elif flag != 0 or beam != [(db, float(e)) for db, e in r["beam"]]:
             bad.append((idx, flag, 0))
     if bad:
@@ -743,7 +777,7 @@ def phase_buckets(rows_all):
         eng = FoldEngine(bucket_config(N, 100, 50, 1000), B=nb, device="cuda")
         rate, secs, peak, n_launch, step_args, flag_args = _stream(
             eng, sel, sel[:nb])
-        flags = [r["flagged"] for r in sel if r["flagged"]]
+        flags = [_want_flag(r) for r in sel if _want_flag(r)]
         log(f"[buckets] N={N} B={nb}: {len(sel) - len(flags)} unflagged rows "
             f"equal the journal with flag 0, flagged rows carry {flags}; "
             f"{rate:.3f} seq/s ({secs:.3f} s for {len(sel)}); peak "
@@ -756,6 +790,71 @@ def phase_buckets(rows_all):
             steps.append(_kernel_vs_bound("flagged rows' step", flag_args, N,
                                           real_step=True))
     return launches, steps
+
+
+@phase
+def phase_b512(rows_all, refs):
+    """The corpus's 257-512 nt band at -n 100 -ms 50 as the sweep folds
+    it: all 252 journal rows of the 512 bucket through run_stream at
+    bucket_config(512, 100, 50, 1000), B = bucket_batch(16, 512), graphed,
+    no row flagged; every beam the journal's or, where the journal is
+    flagged or a TPU-run artifact, fold_cpu's (folded here, on the
+    host's cores, while the card folds).  Prints seq/s, the peak, and the
+    quantiles of r_need and cplx_need against R and CPLX."""
+    N = 512
+    index = [i for i, r in enumerate(rows_all)
+             if TS.bucket_of(len(r["seq"]), TS.DEFAULT_BUCKETS) == N]
+    rows = [rows_all[i] for i in index]
+    seqs = [r["seq"] for r in rows]
+    oracle = {o["seq"]: o["beam"] for o in refs["oracle"]}
+    refold = [k for k, r in enumerate(rows)
+              if r["flagged"] or r["seq"] in oracle]
+    cfg = bucket_config(N, 100, 50, 1000)
+    eng = FoldEngine(cfg, B=bucket_batch(16, N), device="cuda")
+    for _ in eng.run_stream(seqs[: eng.B]):          # capture, warm
+        pass
+    with multiprocessing.get_context("forkserver").Pool(
+            max(1, min(os.cpu_count() or 1, len(refold)))) as pool:
+        cpu = pool.map_async(TS._cpu_refold, [(k, seqs[k], 100, 50, 1000)
+                                              for k in refold], chunksize=1)
+        needs = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        WT.LAUNCHES = DL.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = list(eng.run_stream(seqs, needs=needs))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, d_launches = WT.LAUNCHES, DL.LAUNCHES
+        peak = torch.cuda.max_memory_allocated() + pool_bytes(eng)
+        cpu = {k: [tuple(x) for x in beam] for k, beam, _ in cpu.get()}
+    if sorted(i for i, _, _ in out) != list(range(len(rows))):
+        raise AssertionError("run_stream did not yield every sequence once")
+    if launches == 0 or d_launches == 0:
+        raise AssertionError(f"the run launched the wavefront kernel "
+                             f"{launches} and the delta kernel {d_launches} "
+                             f"times")
+    flagged = {index[k]: FT.flag_names(flag) for k, _, flag in out if flag}
+    bad = []
+    for k, beam, _flag in out:
+        journal = [(db, float(e)) for db, e in rows[k]["beam"]]
+        if k in cpu and beam != cpu[k]:
+            bad.append((index[k], "fold_cpu"))
+        elif k not in cpu and beam != journal:
+            bad.append((index[k], "journal"))
+    cplx_need, r_need = (quantiles(x) for x in zip(
+        *(needs[k] for k in range(len(rows)))))
+    log(f"[b512] N={N} R={cfg.R} CPLX={cfg.CPLX} W={cfg.W} B={eng.B}: "
+        f"{len(rows)} rows, flagged {flagged or 'none'}; "
+        f"{len(rows) - len(refold)} beams held to the journal, {len(refold)} "
+        f"to fold_cpu (journal rows {[index[k] for k in refold]}), differ "
+        f"{bad or 'none'}; r_need {r_need} of R={cfg.R}; cplx_need "
+        f"{cplx_need} of CPLX={cfg.CPLX}; {len(rows) / secs:.3f} seq/s "
+        f"({secs:.3f} s); peak {peak / 2**20:.1f} MiB; wavefront launches "
+        f"{launches}, delta launches {d_launches}")
+    if flagged or bad:
+        raise AssertionError(f"b512: flagged {flagged}, differ {bad}")
+    return launches, []
 
 
 def _fold_once(eng, seqs):
@@ -884,8 +983,11 @@ def phase_k200(rows_all):
     return launches, steps
 
 
-# phase delta: the stream cells' step shapes (tag, beam width, nb_mode)
-DELTA_CELLS = (("n100ms50", 50, 100), ("n200ms200", 200, 200))
+# phase delta: the stream cells' step shapes (tag, bucket N, beam width,
+# nb_mode, the band of journal rows); B = bucket_batch(16, N)
+DELTA_CELLS = (("n100ms50", 128, 50, 100, (65, 128)),
+               ("n200ms200", 128, 200, 200, (65, 128)),
+               ("n100ms50-b512", 512, 50, 100, (257, 512)))
 
 
 def _delta_vs_plain(args, what):
@@ -906,10 +1008,11 @@ def _delta_vs_plain(args, what):
 @phase
 def phase_delta(rows_all):
     """The delta kernel (csrc/delta.cu) against its plain version on the
-    first four steps of 16 journal rows at each stream cell's shape (N=128,
-    B=16; K=50, M=100 and K=200, M=200), every lane of all four outputs;
-    the kernel, the plain version and the kernel's byte bound on the
-    fourth step; then the whole -n 200 -ms 200 band (the 1,894 rows of
+    first four steps of the first B journal rows of the band at each
+    stream cell's shape (N=128, B=16; K=50, M=100 and K=200, M=200; N=512,
+    B=8, K=50, M=100, R=24), every lane of all four outputs; the kernel,
+    the plain version and the kernel's byte bound on the fourth step;
+    then the whole -n 200 -ms 200 band (the 1,894 rows of
     65-128 nt of the committed K=200 sweep) through run_stream, graphed:
     no row flagged, every best row the committed one or the whole beam
     fold_cpu's."""
@@ -919,12 +1022,12 @@ def phase_delta(rows_all):
              if "registers" in line or "spill" in line]
     for line in ptxas:
         log(f"[delta] ptxas: {line}")
-    seqs = [r["seq"] for r in rows_all if 65 <= len(r["seq"]) <= 128][:B]
     shapes = []
-    for tag, K, nb_mode in DELTA_CELLS:
-        cfg = bucket_config(128, nb_mode, K, 1000)
-        eng = FoldEngine(cfg, B=B, device=dev, graphs=False)
-        calls = delta_step_calls(eng, seqs, 4)
+    for tag, N, K, nb_mode, (lo, hi) in DELTA_CELLS:
+        cfg = bucket_config(N, nb_mode, K, 1000)
+        eng = FoldEngine(cfg, B=bucket_batch(16, N), device=dev, graphs=False)
+        seqs = [r["seq"] for r in rows_all if lo <= len(r["seq"]) <= hi]
+        calls = delta_step_calls(eng, seqs[: eng.B], 4)
         runs = unsup = 0
         for i, args in enumerate(calls):
             h, u = _delta_vs_plain(args, f"{tag} step {i + 1}")
@@ -971,8 +1074,9 @@ def phase_delta(rows_all):
         f"{len(band) - len(refolded)} best rows equal {os.path.basename(K200_SWEEP)}, "
         f"{len(refolded)} equal fold_cpu's whole beam instead (rows "
         f"{refolded}); delta launches {launches}")
-    return dict(ms=shapes[-1]["ms"], plain_ms=shapes[-1]["plain_ms"],
-                bound_ms=shapes[-1]["bound_ms"], bound_by="bytes",
+    k200 = next(s for s in shapes if s["cell"] == "n200ms200")
+    return dict(ms=k200["ms"], plain_ms=k200["plain_ms"],
+                bound_ms=k200["bound_ms"], bound_by="bytes",
                 library_ms=None, ptxas=ptxas, shapes=shapes,
                 band=dict(rows=len(band), seconds=secs,
                           seq_per_s=len(band) / secs, refolded=refolded,
@@ -1083,7 +1187,7 @@ def _journal_diff(rows, path):
         g = got.get(r["name"] + r["seq"])
         if g is None:
             raise AssertionError(f"journal row {i} ({r['name']}) not written")
-        if g != r:
+        if g != dict(r, flagged=_want_flag(r)):
             first = next((k for k, (a, b) in enumerate(zip(g["beam"], r["beam"]))
                           if a != b), min(len(g["beam"]), len(r["beam"])))
             log(f"[journal] row {i} ({r['name']}, {len(r['seq'])} nt) differs "
@@ -1492,7 +1596,7 @@ def phase_bench(rows_all, refs):
     scan, every fold held to the journal; the kernel on one real step of
     each B of the scan.  Returns the launches of both and the steps."""
     want = {r["seq"]: ([(db, float(e)) for db, e in r["beam"]],
-                       r["flagged"], False) for r in rows_all}
+                       _want_flag(r), False) for r in rows_all}
     for o in refs["oracle"]:
         want[o["seq"]] = ([tuple(x) for x in o["beam"]], 0, True)
     folds = {}
@@ -1754,7 +1858,7 @@ def phase_graph(rows_all):
             raise AssertionError(f"graph {tag}: the fold did not replay one "
                                  f"graph of G={G} rounds: {list(eng._graphs)},"
                                  f" {launches[tag]} launches")
-        flags = [r["flagged"] for r in rows if r["flagged"]]
+        flags = [_want_flag(r) for r in rows if _want_flag(r)]
         log(f"[graph] {tag} (N={cfg.N}, B={nb}): {len(rows) - len(flags)} "
             f"rows equal the journal with flag 0, flagged rows carry {flags}; "
             f"{len(rows) / secs:.3f} seq/s ({secs:.3f} s, one graph of {G} "
@@ -2202,7 +2306,8 @@ def main(argv=None):
                                          "(default 3600)")
     ap.add_argument("--only", help="comma-separated phases to run after "
                     "device and build (kernel, fold_one, oracle, weights, "
-                    "headline, loops, buckets, k200, delta, long, sweep, "
+                    "headline, loops, buckets, b512, k200, delta, long, "
+                    "sweep, "
                     "cli, mfe, "
                     "api, multi, bench, tools, graph), then --full and "
                     "--k200-full "
@@ -2229,6 +2334,7 @@ def main(argv=None):
         headline=lambda: counted("headline", phase_headline(rows)),
         loops=phase_loops,
         buckets=lambda: counted("bucket", phase_buckets(rows)),
+        b512=lambda: counted("b512", phase_b512(rows, refs)),
         k200=lambda: counted("k200_", phase_k200(rows)),
         delta=lambda: kern_delta.update(phase_delta(rows)),
         long=lambda: counted("long", phase_long(refs)),

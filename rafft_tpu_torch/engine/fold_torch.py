@@ -113,8 +113,9 @@ CLAMP = 1 << 20
 # the loop-size tables of energy/params.py reach 8,192 unpaired positions
 MAX_N = 4096
 # the state keys that the JAX engine's state lacks: each lane's most
-# complex candidates in any step of its fold, and the banked fold's
-PORT_KEYS = ("cplx_need", "out_cplx_need")
+# complex candidates in any step of its fold and the most live regions of
+# any new structure it considered, and the banked fold's
+PORT_KEYS = ("cplx_need", "out_cplx_need", "r_need", "out_r_need")
 
 
 def cplx_budget(base: int, K: int) -> int:
@@ -124,6 +125,18 @@ def cplx_budget(base: int, K: int) -> int:
     ones to evaluate (a deliberate difference from the JAX sweep, whose
     CPLX does not grow with K)."""
     return base * -(-K // 50)
+
+
+def region_slots(N: int) -> int:
+    """The region slots R of the N bucket: the JAX sweep's 16 up to
+    N=256 and 32 above 512.  At 512 that sweep's 16 drop regions of two
+    of the corpus's 252 rows of 257-512 nt at -n 100 -ms 50 (flag
+    r_slots); the band's largest r_need is 20 live regions at K=50 and
+    24 at K=200 (journal row 2269), so the 512 bucket takes 24 (a
+    deliberate difference from the JAX sweep).  R does not grow with K:
+    at K=200 the band fills every slot, so a wider beam or another
+    corpus may need more, and run_stream's needs say so."""
+    return 16 if N <= 256 else 24 if N <= 512 else 32
 
 
 @dataclass(frozen=True)
@@ -406,7 +419,7 @@ class FoldEngine:
             active=self._t(active), rorder=self._t(rorder),
             seen_h1=z(B, S, d=i64), seen_h2=z(B, S, d=i64), seen_cnt=z(B),
             done=self._t(n == 0), cplx_dropped=z(B), enum_suspect=z(B),
-            cplx_need=z(B),
+            cplx_need=z(B), r_need=z(B),
             # continuous batching: per-lane shadow sequence, output buffer
             # for one finished fold, and bookkeeping
             seqid=self._t(sid), lane_steps=z(B),
@@ -416,6 +429,7 @@ class FoldEngine:
             out_act=z(B, K, d=torch.bool), out_n=z(B), out_seqid=f(-1, B),
             out_done=z(B, d=torch.bool), out_flag=z(B),
             out_valid=z(B, d=torch.bool), out_cplx_need=z(B),
+            out_r_need=z(B),
         )
 
     def _refill(self, state, mask, codes_new, n_new):
@@ -444,6 +458,7 @@ class FoldEngine:
         st["done"] = torch.where(mask, n_new == 0, state["done"])
         st["cplx_dropped"] = torch.where(mask, 0, state["cplx_dropped"])
         st["cplx_need"] = torch.where(mask, 0, state["cplx_need"])
+        st["r_need"] = torch.where(mask, 0, state["r_need"])
         st["enum_suspect"] = torch.where(mask, 0, state["enum_suspect"])
         return st
 
@@ -635,7 +650,9 @@ class FoldEngine:
                                                device=dev),
                   tie=z64(B, K), kv=z64(B, K), idx=z64(B, K, R),
                   on=zb(B, K, R), h1=z64(B, K), h2=z64(B, K))
-        susr, suss = zb(B), zb(B)
+        # the most live regions of any new structure (more than R slots
+        # drop regions: flag r_slots), and seen-set overflow
+        rneed, suss = z64(B), zb(B)
 
         def merge(bm, E, tie, extra):
             """Merge candidate rows into the running top-K beam."""
@@ -675,8 +692,7 @@ class FoldEngine:
             d_delta, d_nlive, d_h1, d_h2 = pick(Dd), pick(Dn), pick(Dh1), pick(Dh2)
 
             new_E = energy.gather(1, kvc) + torch.where(on_r, d_delta, 0).sum(-1)
-            # more live regions than R slots would drop regions: flag
-            r_over = torch.where(on_r, d_nlive, 0).sum(-1) > R
+            nlive = torch.where(on_r, d_nlive, 0).sum(-1)
             # combination hashes compose additively (mod 2^32)
             h1 = (ph1.gather(1, kvc) + torch.where(on_r, d_h1, 0).sum(-1)) & MASK32
             h2 = (ph2.gather(1, kvc) + torch.where(on_r, d_h2, 0).sum(-1)) & MASK32
@@ -701,7 +717,8 @@ class FoldEngine:
             newmask = _first_occurrence(processed, key) & ~in_seen
             rank = newmask.long().cumsum(-1) - 1
             n_new = newmask.sum(-1)
-            susr_w = susr | (r_over & newmask).any(-1)
+            rneed_w = torch.maximum(
+                rneed, torch.where(newmask, nlive, 0).amax(-1))
 
             # insert into seen: only new slots are written
             slot = s_cnt[:, None] + rank
@@ -734,7 +751,7 @@ class FoldEngine:
             s_cnt = torch.where(r3, s_cnt_new.clamp(max=S - 1), s_cnt)
             nbr = torch.where(r3, nbr + n_new, nbr)
             kcap = torch.where(r3, kcap_w, kcap)
-            susr = torch.where(r3, susr_w, susr)
+            rneed = torch.where(r3, rneed_w, rneed)
             suss = torch.where(r3, suss_w, suss)
             bm = {k: torch.where(r2 if v.dim() == 3 else r1, bm_w[k], v)
                   for k, v in bm.items()}
@@ -747,7 +764,7 @@ class FoldEngine:
         fE = energy + torch.where(part, Dd[..., 0], 0).sum(-1)
         fh1 = (ph1 + torch.where(part, Dh1[..., 0], 0).sum(-1)) & MASK32
         fh2 = (ph2 + torch.where(part, Dh2[..., 0], 0).sum(-1)) & MASK32
-        f_rover = torch.where(part, Dn[..., 0], 0).sum(-1) > R
+        f_nlive = torch.where(part, Dn[..., 0], 0).sum(-1)
         fkey = _hkey(fh1, fh2)
         f_inseen = _member(_hkey(s_h1[:, :S], s_h2[:, :S]), s_cnt, fkey)
         f_new = _first_occurrence(f_ok, fkey) & ~f_inseen
@@ -758,14 +775,14 @@ class FoldEngine:
         f_cnt = s_cnt + f_new.sum(-1)
         suss = suss | (f_cnt > S - 1)
         s_cnt = f_cnt.clamp(max=S - 1)
-        susr = susr | (f_rover & f_new).any(-1)
+        rneed = torch.maximum(rneed, torch.where(f_new, f_nlive, 0).amax(-1))
         bm = merge(bm, torch.where(f_new, fE, INFE), first_start, dict(
             valid=f_new, kv=kk.expand(B, K), idx=z64(B, K, R),
             on=part, h1=fh1, h2=fh2))
 
         # exactness flags, one bit per cause
         bits = (_bit((mode == M_NORM) & ~done, FLAG_VWINDOW)
-                | _bit(susr, FLAG_RSLOTS) | _bit(suss, FLAG_SEEN))
+                | _bit(rneed > R, FLAG_RSLOTS) | _bit(suss, FLAG_SEEN))
 
         clock.to("pool")
         # ---- pool (new before old on ties) and truncate to K
@@ -827,6 +844,8 @@ class FoldEngine:
             cplx_dropped=state["cplx_dropped"] + torch.where(keep, dropped, 0),
             cplx_need=torch.maximum(state["cplx_need"],
                                     torch.where(keep, need, 0)),
+            r_need=torch.maximum(state["r_need"],
+                                 torch.where(keep, rneed, 0).to(i32)),
             enum_suspect=state["enum_suspect"] | torch.where(keep, bits, 0))
         clock.round()
         if own:
@@ -859,6 +878,7 @@ class FoldEngine:
         st["out_flag"] = torch.where(rec, self.flags(st), st["out_flag"])
         st["out_cplx_need"] = torch.where(rec, st["cplx_need"],
                                           st["out_cplx_need"])
+        st["out_r_need"] = torch.where(rec, st["r_need"], st["out_r_need"])
         st["out_valid"] = st["out_valid"] | rec
         st2 = self._refill(st, rec, st["next_codes"], st["next_n"])
         st2["seqid"] = torch.where(rec, st["next_seqid"], st["seqid"])
@@ -1004,8 +1024,8 @@ class FoldEngine:
             return st
 
     _OUT_KEYS = ("out_pt", "out_E", "out_act", "out_n", "out_seqid",
-                 "out_flag", "out_cplx_need", "out_valid", "done", "seqid",
-                 "lane_steps")
+                 "out_flag", "out_cplx_need", "out_r_need", "out_valid",
+                 "done", "seqid", "lane_steps")
 
     def run_stream(self, seqs, G: int = 4, needs=None):
         """Continuous-batching fold over a sequence list.
@@ -1013,9 +1033,10 @@ class FoldEngine:
         Yields (index, rows, flagged) as folds finish, where rows is the
         final beam [(dot_bracket, energy_kcal)] best-first and flagged
         the FLAG_* cause bitmask (flags()); `needs`, a dict where given,
-        gets each yielded fold's cplx_need (the most complex candidates
-        any step of it had: it overflowed the budget CPLX where above it)
-        under its index.
+        gets each yielded fold's (cplx_need, r_need) under its index: the
+        most complex candidates any step of it had (it overflowed the
+        budget CPLX where above it), and the most live regions of any new
+        structure it considered (over R it dropped regions).
 
         Every lane that folds a sequence holds a shadow: the draw's next
         sequence, or once the draw is exhausted an empty one (n 0, seqid
@@ -1047,7 +1068,8 @@ class FoldEngine:
         stream.live_lanes (lanes folding a sequence, neither done nor at
         the step limit) of stream.lanes; the high-water counters
         stream.cplx_need_peak (the largest cplx_need of the folds
-        yielded) and stream.cplx_budget (CPLX)."""
+        yielded) and stream.cplx_budget (CPLX), stream.rslot_need_peak
+        (the largest r_need) and stream.rslots (R)."""
         cfg, B = self.cfg, self.B
         LIM = 2 * cfg.max_steps
         nseq = len(seqs)
@@ -1075,9 +1097,9 @@ class FoldEngine:
                 codes, n = self._encode(placed, B)
             return load, codes, n, sid
 
-        def tally(sid, flag, need):
+        def tally(sid, flag, need, r_need):
             if needs is not None:
-                needs[sid] = need
+                needs[sid] = (need, r_need)
             if obs.recording():
                 obs.count("stream.folds")
                 obs.count("stream.flagged", int(flag != 0))
@@ -1085,6 +1107,7 @@ class FoldEngine:
                     if flag & bit:
                         obs.count("stream.flagged." + cause)
                 obs.high("stream.cplx_need_peak", need)
+                obs.high("stream.rslot_need_peak", r_need)
 
         load, codes_new, n_new, sid_new = loader(range(B), seqid)
         state = self._drain_load(state, self._t(np.zeros(B, bool)),
@@ -1095,10 +1118,11 @@ class FoldEngine:
         if nseq:
             state = advance(state, G)
         while emitted < nseq:
-            (o_pt, o_E, o_act, o_n, o_sid, o_flag, o_need, o_valid,
+            (o_pt, o_E, o_act, o_n, o_sid, o_flag, o_need, o_rneed, o_valid,
              l_done, l_sid, l_steps) = self._fetch(state, self._OUT_KEYS)
             if obs.recording():
                 obs.high("stream.cplx_budget", cfg.CPLX)
+                obs.high("stream.rslots", cfg.R)
                 obs.count("stream.replays")
                 obs.count("stream.rounds", G)
                 live = (l_sid >= 0) & ~l_done & (l_steps < LIM)
@@ -1118,7 +1142,8 @@ class FoldEngine:
             for b in fresh:
                 with obs.span("engine.rows"):
                     rows = self._rows_from(o_pt[b], o_E[b], o_act[b], o_n[b])
-                tally(int(o_sid[b]), int(o_flag[b]), int(o_need[b]))
+                tally(int(o_sid[b]), int(o_flag[b]), int(o_need[b]),
+                      int(o_rneed[b]))
                 yield int(o_sid[b]), rows, int(o_flag[b])
                 emitted += 1
 
@@ -1241,7 +1266,7 @@ def fold_one_config(n, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
                         gc_wei=gc_wei, au_wei=au_wei, gu_wei=gu_wei,
                         V=min(4096, max(256, 2 * max_branch)),
                         S=max(4096, 16 * max_stack * 8),
-                        R=16 if N <= 512 else 32)
+                        R=region_slots(N))
 
 
 # The engines that fold() and fold_one() keep between calls, so that a call

@@ -56,7 +56,8 @@ import torch
 from rafft_tpu_torch import _build
 from rafft_tpu_torch.engine import wavefront as WT
 from rafft_tpu_torch.engine.fold_torch import (FLAG_NAMES, EngineConfig,
-                                               FoldEngine, cplx_budget)
+                                               FoldEngine, cplx_budget,
+                                               region_slots)
 from rafft_tpu_torch.scoring import best_of, score_structures
 
 # the buckets of rafft_tpu/parallel/sweep.py (no 64 bucket there either)
@@ -112,12 +113,14 @@ def bucket_batch(batch, N):
 
 def bucket_config(N, nb_mode, max_stack, max_branch) -> EngineConfig:
     """The JAX sweep's engine configuration for bucket N
-    (rafft_tpu/parallel/sweep.py:167-186), but for CPLX: the JAX sweep's
-    512 (N <= 128) or 1024 per 50 beam rows begun (cplx_budget), so
-    K <= 50 folds at the JAX sweep's budget and K = 200 at four times it,
-    with no fold of the 65-128 nt corpus rows over it."""
+    (rafft_tpu/parallel/sweep.py:167-186), but for CPLX and, at 512, R:
+    the JAX sweep's 512 (N <= 128) or 1024 per 50 beam rows begun
+    (cplx_budget), so K <= 50 folds at the JAX sweep's budget and K = 200
+    at four times it, with no fold of the 65-128 nt corpus rows over it;
+    and region_slots' R, 24 at 512 where the JAX sweep has 16, so no fold
+    of the 257-512 nt corpus rows drops regions."""
     return EngineConfig(N=N, K=max_stack, M=min(nb_mode, 2 * N - 1),
-                        R=16 if N <= 512 else 32, max_branch=max_branch,
+                        R=region_slots(N), max_branch=max_branch,
                         V=4096, W=8 if N <= 128 else 24,
                         CPLX=cplx_budget(512 if N <= 128 else 1024, max_stack),
                         S=max(16384, 32 * max_stack))

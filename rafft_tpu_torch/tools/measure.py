@@ -1,8 +1,9 @@
 """Measure the port's fold path on one CUDA card, layer by layer.
 
-    python -m rafft_tpu_torch.tools.measure [--phases loops,profile,kernel,walk,mfe,graph,obs,tail,kept,cplx]
+    python -m rafft_tpu_torch.tools.measure [--phases loops,profile,kernel,walk,mfe,graph,obs,tail,kept,cplx,need]
                                             [--passes 5] [--out DIR]
                                             [--max-stack 50] [--profile-buckets 256,512,1024]
+                                            [--bucket 512] [--rslots 24,32]
 
 Run it from the root of a checkout: it measures the rafft_tpu_torch
 package that the checkout holds.  To compare two versions in one call,
@@ -118,6 +119,15 @@ Phases (each prints lines tagged with its name):
              rule, 512: host ms of a replay of G rounds to a
              synchronisation, and each stage's device ms a round (the
              stage clocks, read under a CPU-only profiler);
+  need     - the budgets' need in one corpus band: the journal's rows of
+             the --bucket N bucket (default 512) through run_stream at
+             bucket_config(N, 100, --max-stack, 1000), B =
+             bucket_batch(16, N), G=4, then at each region-slot width R
+             of --rslots (default none) with the rest of that
+             configuration: per R the flags by cause with the journal
+             indices of the flagged rows, each fold's cplx_need and r_need
+             (quantiles, the largest, the rows whose r_need is over 16),
+             seconds, seq/s and the peak (allocated, plus the graph pool);
   mfe      - the batched MFE DP (mfe/mfe_torch.py) per MFE bucket (32 to
              1024 on a full batch of the bucket's first journal rows at
              bench_mfe's batch size, and 4096 on the longer 23S rRNA,
@@ -147,6 +157,8 @@ import time
 
 import numpy as np
 import torch
+
+from rafft_tpu_torch.engine.fold_torch import region_slots
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -238,13 +250,11 @@ def region_layouts(rng, rows, R, N, nmin, nmax):
 # at K=50 (beam rows = batch x K: 800, 800, 400, 200, 100, 50) and in the
 # 128 bucket at K=200 (3,200 rows)
 K_BEAM = 50
-KERNEL_SHAPES = ((128, 16, 16, (60, 120), K_BEAM),
-                 (256, 16, 16, (129, 256), K_BEAM),
-                 (512, 8, 16, (257, 512), K_BEAM),
-                 (1024, 4, 32, (513, 780), K_BEAM),
-                 (2048, 2, 32, (1100, 2000), K_BEAM),
-                 (4096, 1, 32, (2049, 3000), K_BEAM),
-                 (128, 16, 16, (60, 120), 200))
+KERNEL_SHAPES = tuple((N, nb, region_slots(N), lens, K) for N, nb, lens, K in (
+    (128, 16, (60, 120), K_BEAM), (256, 16, (129, 256), K_BEAM),
+    (512, 8, (257, 512), K_BEAM), (1024, 4, (513, 780), K_BEAM),
+    (2048, 2, (1100, 2000), K_BEAM), (4096, 1, (2049, 3000), K_BEAM),
+    (128, 16, (60, 120), 200)))
 
 # what the bound takes of the card (NVIDIA's H100 SXM data sheet): 3.35
 # TB/s of device memory; 67 TFLOP/s float32 counts a fused multiply-add
@@ -1088,7 +1098,7 @@ def phase_obs(rows_all, passes, G=GRAPH_G):
                 stage_ms=stages)
 
 
-def _quantiles(xs):
+def quantiles(xs):
     xs = np.sort(np.asarray(xs))
     return {f"p{q}": int(xs[min(len(xs) - 1, int(q / 100 * len(xs)))])
             for q in (50, 90, 99)} | {"max": int(xs[-1])}
@@ -1120,7 +1130,7 @@ def phase_cplx(passes, G=GRAPH_G):
         for i, beam, flag in eng.run_stream(seqs, G, needs=needs):
             got[i] = (beam, flag)
         secs = time.perf_counter() - t0
-        need = [needs[i] for i in range(len(seqs))]
+        need = [needs[i][0] for i in range(len(seqs))]
         causes = {}
         for _, flag in got.values():
             if flag:
@@ -1128,7 +1138,7 @@ def phase_cplx(passes, G=GRAPH_G):
         over = {w: sum(n > w for n in need) for w in (512, 1024, 2048)}
         rec[tag] = dict(CPLX=cfg.CPLX, rows=len(seqs), seconds=secs,
                         seq_per_s=len(seqs) / secs, flags=causes,
-                        need=_quantiles(need), over=over,
+                        need=quantiles(need), over=over,
                         cplx_flagged=[i for i, (_, f) in got.items()
                                       if f & FLAG_CPLX],
                         needs=need)
@@ -1188,6 +1198,51 @@ def phase_cplx(passes, G=GRAPH_G):
             f"{_median(host[tag]):.3f} ms ({[round(x, 3) for x in host[tag]]}"
             f"); stages a round (medians) {sum(st.values()):.3f} ms: "
             + ", ".join(f"{k} {v:.3f}" for k, v in st.items()))
+    return rec
+
+
+def phase_need(rows_all, N, K, rslots, G=GRAPH_G):
+    import dataclasses
+
+    from rafft_tpu_torch.engine.fold_torch import FoldEngine, flag_names
+    from rafft_tpu_torch.parallel.sweep import bucket_batch, bucket_config
+    index = [i for i, r in enumerate(rows_all)
+             if next(b for b in BUCKETS if len(r["seq"]) <= b) == N]
+    seqs = [rows_all[i]["seq"] for i in index]
+    rule = bucket_config(N, 100, K, 1000)
+    B = bucket_batch(16, N)
+    rec = []
+    for R in [rule.R] + [R for R in rslots if R != rule.R]:
+        cfg = dataclasses.replace(rule, R=R)
+        eng = FoldEngine(cfg, B=B, device="cuda")
+        list(eng.run_stream(seqs[:B], G))          # capture, warm
+        needs, causes = {}, {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i, _beam, flag in eng.run_stream(seqs, G, needs=needs):
+            if flag:
+                causes.setdefault(flag_names(flag), []).append(index[i])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() + pool_bytes(eng)
+        cplx, rn = zip(*(needs[i] for i in range(len(seqs))))
+        r = dict(N=N, K=K, R=R, CPLX=cfg.CPLX, B=B, rows=len(seqs),
+                 seconds=secs, seq_per_s=len(seqs) / secs,
+                 peak_mib=peak / MiB, flags=causes,
+                 cplx_need=quantiles(cplx), r_need=quantiles(rn),
+                 r_need_over_16={index[i]: n for i, n in enumerate(rn)
+                                 if n > 16},
+                 r_need_histogram=np.bincount(rn).tolist())
+        rec.append(r)
+        log(f"[need] N={N} K={K} R={R} CPLX={cfg.CPLX} B={B}: {len(seqs)} "
+            f"rows in {secs:.3f} s ({r['seq_per_s']:.3f} seq/s), peak "
+            f"{r['peak_mib']:.1f} MiB; flags by cause (journal rows) "
+            f"{causes}; cplx_need {r['cplx_need']}; r_need {r['r_need']}, "
+            f"over 16 (journal row: need) {r['r_need_over_16']}, histogram "
+            f"{r['r_need_histogram']}")
+        del eng
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -1420,11 +1475,16 @@ def main(argv=None):
     ap.add_argument("--out", help="directory for the profiler tables")
     ap.add_argument("--against", help="another checkout, for the swap phase")
     ap.add_argument("--max-stack", dest="max_stack", type=int, default=K_BEAM,
-                    help="the profile phase's beam width K (default 50; 200 "
-                         "for the -n 200 -ms 200 configuration)")
+                    help="the profile and need phases' beam width K (default "
+                         "50; 200 for the -n 200 -ms 200 configuration)")
     ap.add_argument("--profile-buckets", dest="profile_buckets",
                     default="256,512,1024",
                     help="the profile phase's buckets, of 128/256/512/1024")
+    ap.add_argument("--bucket", type=int, default=512,
+                    help="the need phase's bucket (default 512)")
+    ap.add_argument("--rslots", default="",
+                    help="the need phase's further region-slot widths R, "
+                         "comma-separated (default none)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure: no CUDA device")
@@ -1458,6 +1518,12 @@ def main(argv=None):
             if args.out:
                 with open(os.path.join(args.out, "cplx.json"), "w") as fh:
                     json.dump(rec, fh)
+        elif ph == "need":
+            rec = phase_need(rows, args.bucket, args.max_stack,
+                             [int(R) for R in args.rslots.split(",") if R])
+            if args.out:
+                with open(os.path.join(args.out, "need.json"), "w") as fh:
+                    json.dump(rec, fh, indent=1)
         elif ph == "kept":
             rec = phase_kept()
             if args.out:

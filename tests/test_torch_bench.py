@@ -39,6 +39,9 @@ BUCKETS = tuple(N for N, _ in TB.BUCKET_SAMPLES)
 CELLS = tuple(str(N) for N in BUCKETS) + ("headline",)
 # where the port keeps the sweep's CPLX=1024 and bench.py has 512
 KEPT_CPLX = ("256", "512", "1024")
+# where the port keeps the sweep's region slots (region_slots) and
+# bench.py has 16
+KEPT_R = ("512",)
 # a configuration small enough for the JAX engine to compile quickly
 SMALL = dict(N=32, K=5, R=4, M=12, V=32, CPLX=8, S=128, max_branch=24,
              max_steps=8)
@@ -98,12 +101,14 @@ def port_configs():
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_configs_match_jax_bench(cell, jax_bench, port_configs):
-    """Every field and the batch equal bench.py's, but CPLX where kept."""
+    """Every field and the batch equal bench.py's, but CPLX and R where
+    kept."""
     (jcfg, jB), (pcfg, pB) = jax_bench["configs"][cell], port_configs[cell]
     want, got = dataclasses.asdict(jcfg), dataclasses.asdict(pcfg)
-    if cell in KEPT_CPLX:
-        want.pop("CPLX")
-        got.pop("CPLX")
+    for key, kept in (("CPLX", KEPT_CPLX), ("R", KEPT_R)):
+        if cell in kept:
+            want.pop(key)
+            got.pop(key)
     assert got == want and pB == jB
 
 
@@ -114,6 +119,25 @@ def test_cplx_kept_difference(cell, jax_bench, port_configs):
     assert jax_bench["configs"][cell][0].CPLX == 512
     assert port_configs[cell][0].CPLX == 1024
     assert port_configs[cell][0] == TS.bucket_config(N, 100, 50, 1000)
+
+
+def test_region_slots_kept_difference(jax_bench, port_configs):
+    """bench.py gives the 512 bucket 16 region slots; the port takes the
+    sweep's (region_slots), which hold that band's need.  The 128 and 256
+    cells keep every field of the sweep's configuration, as before."""
+    assert jax_bench["configs"]["512"][0].R == 16
+    assert port_configs["512"][0].R == FT.region_slots(512) == 24
+    for cell in CELLS:
+        R = port_configs[cell][0].R
+        assert R == (24 if cell == "512" else
+                     jax_bench["configs"][cell][0].R), cell
+    for N in (128, 256):
+        assert port_configs[str(N)][0] == TS.bucket_config(N, 100, 50, 1000)
+        assert dataclasses.asdict(TS.bucket_config(N, 100, 50, 1000)) == dict(
+            N=N, K=50, R=16, M=100, V=4096, W=8 if N == 128 else 24,
+            CPLX=512 if N == 128 else 1024, S=16384, max_steps=24,
+            max_branch=1000, min_hp=3, min_nrj=0.0, temp=37.0, gc_wei=3.0,
+            au_wei=2.0, gu_wei=1.0)
 
 
 def test_corpus_buckets(jax_bench):

@@ -274,6 +274,8 @@ CASES = {
                                 _rows(65, 128, 16), 4)),
     "n128_k50_m100": (lambda: (bucket_config(128, 100, 50, 1000), 16,
                                _rows(65, 128, 16), 4)),
+    "n512_k50_m100_r24": (lambda: (bucket_config(512, 100, 50, 1000), 8,
+                                   _rows(257, 512, 8), 4)),
     "api_b1_k20": (lambda: (fold_one_config(len(_rows(65, 128, 1)[0]), 100,
                                             20, 1000), 1, _rows(65, 128, 1),
                             6)),

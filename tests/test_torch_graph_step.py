@@ -128,8 +128,8 @@ def test_advance_rounds_match_jax():
         for k in want:
             np.testing.assert_array_equal(got[k], want[k],
                                           err_msg=f"call {call}: {k}")
-        # the port's own keys: counts of complex candidates, never more
-        # than a step offers
+        # the port's own keys: counts of complex candidates and of live
+        # regions, never more than a step offers
         for k in FT.PORT_KEYS:
             assert (0 <= got[k]).all() and (
                 got[k] <= cfg["K"] * cfg["R"] * cfg["M"]).all(), k

@@ -199,6 +199,8 @@ def test_stream_counts_flags_by_cause_and_the_peak_need(cplx):
     c = snap["counters"]
     flags = {i: flag for i, _, flag in out}
     assert sorted(needs) == sorted(flags) == list(range(len(CPLX_SEQS)))
+    r_needs = {i: r for i, (_, r) in needs.items()}
+    needs = {i: n for i, (n, _) in needs.items()}
     assert c["stream.folds"] == len(CPLX_SEQS)
     assert c["stream.flagged"] == sum(f != 0 for f in flags.values())
     for bit, cause in FT.FLAG_NAMES.items():
@@ -206,6 +208,8 @@ def test_stream_counts_flags_by_cause_and_the_peak_need(cplx):
             bool(f & bit) for f in flags.values()), cause
     assert c["stream.cplx_budget"] == cplx
     assert c["stream.cplx_need_peak"] == max(needs.values()) > 2
+    assert c["stream.rslot_need_peak"] == max(r_needs.values()) > 0
+    assert c["stream.rslots"] == CPLX_CFG.R
     for i, need in needs.items():
         assert bool(flags[i] & FT.FLAG_CPLX) == (need > cplx), i
     if cplx == 2:

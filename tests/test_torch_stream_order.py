@@ -58,14 +58,16 @@ def _serial(eng, seqs, G):
     while len(out) < nseq:
         state = eng._advance(state, G)
         replays += 1
-        (pt, E, act, n, sid, flag, _, valid, _, l_sid, _) = eng._fetch(
-            state, eng._OUT_KEYS)
+        got = dict(zip(eng._OUT_KEYS, eng._fetch(state, eng._OUT_KEYS)))
+        pt, E, act, n, sid, flag, valid = (got[k] for k in (
+            "out_pt", "out_E", "out_act", "out_n", "out_seqid", "out_flag",
+            "out_valid"))
         fresh = np.flatnonzero(valid)
         for b in fresh:
             out.append((int(sid[b]), eng._rows_from(pt[b], E[b], act[b], n[b]),
                         int(flag[b])))
         if len(fresh):
-            state = load(state, valid, fresh, l_sid)
+            state = load(state, valid, fresh, got["seqid"])
     return out, replays
 
 

@@ -32,6 +32,9 @@ torch.set_num_threads(1)
 JOURNAL = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                        "benchmarks", "artifacts", "beams_100n50.jsonl.gz")
 ARGS = dict(nb_mode=20, max_stack=3, max_branch=1000, batch=4, workers=2)
+# the 512 bucket's region slots, the port's kept difference (the JAX
+# sweep's 16 drops regions of two of its corpus rows)
+R512 = 24
 
 
 def _records(count=6):
@@ -145,11 +148,15 @@ def _jax_bucket_config(N, nb_mode, max_stack, max_branch):
 
 
 def _check_bucket_config(N, nb_mode, max_stack, max_branch):
-    """Every field is the JAX sweep's but CPLX, the kept difference: the
-    JAX sweep's budget once per 50 beam rows begun."""
+    """Every field is the JAX sweep's but CPLX and, at 512, R, the kept
+    differences: the JAX sweep's budget once per 50 beam rows begun, and
+    region_slots' width."""
     want = dataclasses.asdict(_jax_bucket_config(N, nb_mode, max_stack,
                                                  max_branch))
     want["CPLX"] *= math.ceil(max_stack / 50)
+    if N == 512:
+        assert want["R"] == 16
+        want["R"] = R512
     got = TS.bucket_config(N, nb_mode, max_stack, max_branch)
     assert dataclasses.asdict(got) == want
     assert TS.bucket_batch(16, N) == JS.bucket_batch(16, N) == {
@@ -189,6 +196,28 @@ def test_cplx_budget_rule(K):
     for n in (20, 60, 128, 300, 1000, 4000):
         cfg = FT.fold_one_config(n, 100, K, 1000)
         assert cfg.CPLX == 512 * times
+
+
+@pytest.mark.parametrize("max_stack", [50, 200])
+def test_region_slots_kept_difference(max_stack):
+    """The 512 bucket takes R512 region slots where the JAX sweep has 16:
+    the largest r_need of the corpus's 252 rows of 257-512 nt at -n 100
+    -ms 50, measured on the card, fits in it.  Every other bucket keeps
+    the JAX sweep's R, and the 128 and 256 buckets every field; fold_one
+    takes the same width by its N."""
+    assert [FT.region_slots(N) for N in TS.DEFAULT_BUCKETS] == \
+        [16, 16, R512, 32, 32, 32]
+    for N in TS.DEFAULT_BUCKETS:
+        got = TS.bucket_config(N, 100, max_stack, 1000)
+        want = _jax_bucket_config(N, 100, max_stack, 1000)
+        assert got.R == FT.region_slots(N) == (R512 if N == 512 else want.R)
+        if N <= 256:
+            assert dataclasses.asdict(got) == dict(
+                dataclasses.asdict(want), CPLX=want.CPLX * max_stack // 50)
+    for n in (20, 64, 128, 200, 256, 257, 300, 509, 512, 513, 1000, 4096):
+        cfg = FT.fold_one_config(n, 100, max_stack, 1000)
+        assert cfg.R == FT.region_slots(cfg.N) == (
+            R512 if 256 < n <= 512 else 16 if n <= 256 else 32), n
 
 
 def test_the_measured_cells_configurations_are_unchanged():
