@@ -5,7 +5,8 @@
 Phases (each raises on failure; the script exits nonzero and prints no
 result line):
   1. device   - a CUDA card is present; print its name and power limit;
-  2. build    - build the wavefront and delta kernels from csrc/ (nvcc)
+  2. build    - build the wavefront, delta and enumerate kernels from
+                csrc/ (nvcc)
                 and the native Turner evaluator from native/ (g++),
                 started together, each timed, with ptxas's registers and
                 spills;
@@ -102,6 +103,20 @@ result line):
                 sweep_200n200_tpu.ckpt.jsonl through run_stream at (128,
                 200, 200, 1000), graphed: no row flagged, each best row
                 the committed one or the whole beam fold_cpu's;
+  7e. enumerate - the enumerate kernel (csrc/enumerate.cu) against its
+                plain version (engine/enumerate.py:_enumerate_combos),
+                every output field on every lane (the seen set, its
+                count, mode, rneed, suss, the windows run and the running
+                beam, its unused rows included), on the first four fold
+                steps at phase delta's three shapes and at the api cell's
+                (fold_one_config at -ms 20: B=1, V=2,000, S=4,096); on
+                the fourth step the kernel's device time, the plain
+                version's, and a byte bound (enumerate_work: the
+                candidate entries the decoded slots reach and the seen
+                set's passes, over 3.35 TB/s); then 4 x B rows through
+                run_stream, graphed, whose enumerate launches are the
+                result line's; phase b512 also raises unless the stream
+                launched the kernel;
   7c. long    - run_stream at bucket_config(4096, 100, 50, 1000), B=1, on
                 the two 23S rRNAs of longtail.ckpt.jsonl (2,915 and 2,968
                 nt): a row carries a nonzero flag, printed by cause, or
@@ -300,6 +315,7 @@ from rafft_tpu_torch.energy.eval_np import eval_structure_int
 from rafft_tpu_torch.energy.params import encode_sequence, get_params
 from rafft_tpu_torch.engine import fold_cpu
 from rafft_tpu_torch.engine import delta as DL
+from rafft_tpu_torch.engine import enumerate as EN
 from rafft_tpu_torch.engine import fold_torch as FT
 from rafft_tpu_torch.engine import wavefront as WT
 from rafft_tpu_torch.engine.fold_torch import (EngineConfig, FoldEngine,
@@ -318,7 +334,7 @@ from rafft_tpu_torch.tools.corpus import journal, reference_order, short_rows
 from rafft_tpu_torch.tools.measure import (K200_SWEEP, KERNEL_SHAPES,
                                            MEM_RATE, bucket_rows,
                                            capture_kernel_call,
-                                           delta_step_calls, event_ms,
+                                           event_ms, step_calls,
                                            first_difference_is_a_tie,
                                            GRAPH_G, graph_cell, pool_bytes,
                                            kernel_bound, mfe_bucket_rows,
@@ -378,7 +394,7 @@ def phase_device():
 @phase
 def phase_build():
     """The native sources, started together; seconds of each."""
-    names = ("wavefront", "delta", "turner_eval")
+    names = ("wavefront", "delta", "enumerate", "turner_eval")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(_build.build, names))
@@ -820,20 +836,21 @@ def phase_b512(rows_all, refs):
         needs = {}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        WT.LAUNCHES = DL.LAUNCHES = 0
+        WT.LAUNCHES = DL.LAUNCHES = EN.LAUNCHES = 0
         t0 = time.perf_counter()
         out = list(eng.run_stream(seqs, needs=needs))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches, d_launches = WT.LAUNCHES, DL.LAUNCHES
+        e_launches = EN.LAUNCHES
         peak = torch.cuda.max_memory_allocated() + pool_bytes(eng)
         cpu = {k: [tuple(x) for x in beam] for k, beam, _ in cpu.get()}
     if sorted(i for i, _, _ in out) != list(range(len(rows))):
         raise AssertionError("run_stream did not yield every sequence once")
-    if launches == 0 or d_launches == 0:
+    if launches == 0 or d_launches == 0 or e_launches == 0:
         raise AssertionError(f"the run launched the wavefront kernel "
-                             f"{launches} and the delta kernel {d_launches} "
-                             f"times")
+                             f"{launches}, the delta kernel {d_launches} "
+                             f"and the enumerate kernel {e_launches} times")
     flagged = {index[k]: FT.flag_names(flag) for k, _, flag in out if flag}
     bad = []
     for k, beam, _flag in out:
@@ -851,7 +868,8 @@ def phase_b512(rows_all, refs):
         f"{bad or 'none'}; r_need {r_need} of R={cfg.R}; cplx_need "
         f"{cplx_need} of CPLX={cfg.CPLX}; {len(rows) / secs:.3f} seq/s "
         f"({secs:.3f} s); peak {peak / 2**20:.1f} MiB; wavefront launches "
-        f"{launches}, delta launches {d_launches}")
+        f"{launches}, delta launches {d_launches}, enumerate.launches "
+        f"{e_launches}")
     if flagged or bad:
         raise AssertionError(f"b512: flagged {flagged}, differ {bad}")
     return launches, []
@@ -1027,7 +1045,7 @@ def phase_delta(rows_all):
         cfg = bucket_config(N, nb_mode, K, 1000)
         eng = FoldEngine(cfg, B=bucket_batch(16, N), device=dev, graphs=False)
         seqs = [r["seq"] for r in rows_all if lo <= len(r["seq"]) <= hi]
-        calls = delta_step_calls(eng, seqs[: eng.B], 4)
+        calls = step_calls("candidate_delta", eng, seqs[: eng.B], 4)
         runs = unsup = 0
         for i, args in enumerate(calls):
             h, u = _delta_vs_plain(args, f"{tag} step {i + 1}")
@@ -1081,6 +1099,115 @@ def phase_delta(rows_all):
                 band=dict(rows=len(band), seconds=secs,
                           seq_per_s=len(band) / secs, refolded=refolded,
                           launches=launches))
+
+
+def _enumerate_vs_plain(args, what):
+    """The enumerate kernel's outputs equal the plain version's on every
+    lane of `args` (enumerate_combos's positional arguments), every field
+    of the seen set, the flags' inputs and the running beam, its unused
+    rows included.  Returns the windows the lanes ran."""
+    got, got_bm = EN.enumerate_combos(*args)
+    want, want_bm = EN._enumerate_combos(*args)
+    torch.cuda.synchronize()
+    for name, g, w in ([(k, got[k], want[k]) for k in EN.OUT_KEYS]
+                       + [(f"bm.{k}", got_bm[k], want_bm[k])
+                          for k in EN.BM_KEYS]):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            bad = (g != w).nonzero()[:5].tolist() if g.shape == w.shape \
+                else (g.shape, w.shape)
+            raise AssertionError(f"enumerate kernel: {name} differs ({what}) "
+                                 f"at {bad}")
+    return want["windows"]
+
+
+def _graphed_call(fn):
+    """fn(), a call of a hand kernel's wrapper checked before, captured
+    into a CUDA graph: returns the graph's replay, which runs the call's
+    device work (the wrapper's own torch ops and the kernel) with none of
+    its host time, as the fold step's graph runs it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+@phase
+def phase_enumerate(rows_all):
+    """The enumerate kernel (csrc/enumerate.cu) against its plain version
+    on the first four steps of the first B journal rows of the band at
+    each stream cell's shape (DELTA_CELLS) and at the api cell's
+    (fold_one_config at -ms 20: B=1, V=2,000, S=4,096), every lane of
+    every output; the kernel (the wrapper's call replayed as a CUDA
+    graph: the seen set's sort and the kernel, as the step's graph runs
+    them), the plain version and a byte bound (enumerate_work: the
+    candidate entries the decoded slots reach and the seen set's passes)
+    on the fourth step.  Then the main path's launches: 4 x B rows of the
+    first shape's band through run_stream, graphed, counted from zero
+    once its graphs are captured."""
+    dev = torch.device("cuda")
+    out = _build.BUILD_LOG.get("enumerate", (0.0, "(cached)"))[1]
+    ptxas = [line.strip() for line in out.splitlines()
+             if "registers" in line or "spill" in line]
+    for line in ptxas:
+        log(f"[enumerate] ptxas: {line}")
+    cells = [(tag, bucket_config(N, nb_mode, K, 1000), bucket_batch(16, N),
+              (lo, hi)) for tag, N, K, nb_mode, (lo, hi) in DELTA_CELLS]
+    cells.append(("ms20traj-api", fold_one_config(128, 100, 20, 1000), 1,
+                  (65, 128)))
+    shapes = []
+    for tag, cfg, batch, (lo, hi) in cells:
+        eng = FoldEngine(cfg, B=batch, device=dev, graphs=False)
+        seqs = [r["seq"] for r in rows_all if lo <= len(r["seq"]) <= hi]
+        calls = step_calls("enumerate_combos", eng, seqs[: eng.B], 4)
+        lane_windows = [_enumerate_vs_plain(args, f"{tag} step {i + 1}")
+                        for i, args in enumerate(calls)]
+        windows = [int(w.sum()) for w in lane_windows]
+        args = calls[-1]
+        shape = tuple(args[1].shape)
+        ms = event_ms(_graphed_call(lambda: EN.enumerate_combos(*args)), 50,
+                      queued=True)
+        plain_ms = event_ms(lambda: EN._enumerate_combos(*args), 5)
+        work = EN.enumerate_work(args[5], lane_windows[-1], cfg.V, cfg.S)
+        bound = 1e3 * work["bytes"] / MEM_RATE
+        log(f"[enumerate] {tag} {shape} V={cfg.V} W={cfg.W} S={cfg.S}: 4 "
+            f"steps, every output equal to the plain version on every lane "
+            f"(windows run a step: {windows} of {cfg.W * eng.B}); kernel "
+            f"{ms:.4f} ms/call, plain torch {plain_ms:.3f} ms/call; "
+            f"{work['bytes'] / 1e6:.1f} MB, bound {bound:.4f} ms by bytes: "
+            f"the kernel runs at {bound / ms:.1%} of the bound's rate")
+        shapes.append(dict(cell=tag, shape=list(shape), V=cfg.V, W=cfg.W,
+                           S=cfg.S, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by="bytes", bytes=work["bytes"],
+                           share_of_bound=bound / ms, windows=windows))
+        del eng, calls, args
+        torch.cuda.empty_cache()
+    tag, cfg, batch, (lo, hi) = cells[0]
+    eng = FoldEngine(cfg, B=batch, device=dev)
+    seqs = [r["seq"] for r in rows_all if lo <= len(r["seq"]) <= hi]
+    seqs = seqs[: 4 * eng.B]
+    list(eng.run_stream(seqs[: eng.B]))                  # capture, warm
+    torch.cuda.synchronize()
+    EN.LAUNCHES = 0
+    got = list(eng.run_stream(seqs))
+    torch.cuda.synchronize()
+    launches = EN.LAUNCHES
+    if sorted(i for i, _, _ in got) != list(range(len(seqs))) \
+            or launches == 0:
+        raise AssertionError(f"enumerate: run_stream yielded {len(got)} of "
+                             f"{len(seqs)} rows and launched the kernel "
+                             f"{launches} times")
+    log(f"[enumerate] {tag}: {len(seqs)} rows through run_stream, graphed: "
+        f"enumerate.launches {launches}")
+    k50 = shapes[0]
+    return dict(ms=k50["ms"], plain_ms=k50["plain_ms"],
+                bound_ms=k50["bound_ms"], bound_by="bytes", library_ms=None,
+                ptxas=ptxas, shapes=shapes,
+                stream=dict(cell=tag, rows=len(seqs), launches=launches))
 
 
 @phase
@@ -2306,7 +2433,8 @@ def main(argv=None):
                                          "(default 3600)")
     ap.add_argument("--only", help="comma-separated phases to run after "
                     "device and build (kernel, fold_one, oracle, weights, "
-                    "headline, loops, buckets, b512, k200, delta, long, "
+                    "headline, loops, buckets, b512, k200, delta, enumerate, "
+                    "long, "
                     "sweep, "
                     "cli, mfe, "
                     "api, multi, bench, tools, graph), then --full and "
@@ -2318,7 +2446,7 @@ def main(argv=None):
         refs = json.load(fh)
     phase_build()
     rows = journal()
-    launches, steps, kern, kern_delta = {}, [], {}, {}
+    launches, steps, kern, kern_delta, kern_enum = {}, [], {}, {}, {}
 
     def counted(name, result):
         n, step = result
@@ -2337,6 +2465,7 @@ def main(argv=None):
         b512=lambda: counted("b512", phase_b512(rows, refs)),
         k200=lambda: counted("k200_", phase_k200(rows)),
         delta=lambda: kern_delta.update(phase_delta(rows)),
+        enumerate=lambda: kern_enum.update(phase_enumerate(rows)),
         long=lambda: counted("long", phase_long(refs)),
         sweep=lambda: counted("sweep", (phase_sweep(rows), [])),
         cli=lambda: phase_cli(refs),
@@ -2373,7 +2502,10 @@ def main(argv=None):
         **kern), dict(
         name="delta", route="cuda", source="rafft_tpu_torch/csrc/delta.cu",
         replaces=None, launches=kern_delta["band"]["launches"],
-        **kern_delta)]}))
+        **kern_delta), dict(
+        name="enumerate", route="cuda",
+        source="rafft_tpu_torch/csrc/enumerate.cu", replaces=None,
+        launches=kern_enum["stream"]["launches"], **kern_enum)]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,12 +29,16 @@ What differs from the JAX engine:
 * lookups are plain gathers: no one-hot einsums, no lane compaction and
   no f32 packing of dE / hash halves (dE, live-region counts and hashes
   stay integer tensors; hashes are uint32 values held in int64);
-* the enumeration's while loop is a Python loop over all W windows in
-  which all lanes advance together and a per-lane mask freezes the lanes
-  that have finished (a window with no lane left to run leaves the state
-  bit for bit as it was); the complex candidates are evaluated at the
-  fixed width CPLX.  So no stage of a step reads the device and every
-  shape in it is fixed by the configuration;
+* the combination enumeration (the stage enumerate) comes from
+  engine/enumerate.py: on the card the CUDA kernel csrc/enumerate.cu, one
+  block per lane, which runs the lane's windows in order and leaves the
+  loop once the lane has finished; on the CPU its plain version, a Python
+  loop over all W windows in which all lanes advance together and a
+  per-lane mask freezes the lanes that have finished (a window with no
+  lane left to run leaves the state bit for bit as it was); the complex
+  candidates are evaluated at the fixed width CPLX.  So no stage of a
+  step reads the device and every shape in it is fixed by the
+  configuration;
 * what jax.jit gives the JAX engine, a CUDA graph gives this one: on a
   card, run_stream replays one graph of G swap+step rounds
   (_advance_graphed, the counterpart of the jitted _advance_impl) and
@@ -62,7 +66,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from rafft_tpu_torch import _build, obs
 from rafft_tpu_torch.energy.params import encode_sequence
@@ -75,11 +78,14 @@ from rafft_tpu_torch.engine import wavefront as WT
 # the stage delta: the wrapper, and its plain version for the tools
 from rafft_tpu_torch.engine.delta import (_candidate_delta,  # noqa: F401
                                           _children, candidate_delta)
+# the stage enumerate, and the helpers and constants the pool shares
+from rafft_tpu_torch.engine.enumerate import (INFE, M_NORM, MASK32,
+                                              _lexsort2, _rows,
+                                              enumerate_combos)
 from rafft_tpu_torch.engine.wavefront import small_tables, wavefront_tables
 
 _LOG = logging.getLogger(__name__)
 NEG = float(np.float32(-3.0e38))
-MASK32 = 0xFFFFFFFF
 
 # exactness-flag bits (out_flag / enum_suspect), equal to fold_jax's
 FLAG_VWINDOW = 1    # combination V-window truncated reference combos
@@ -101,21 +107,22 @@ FLAG_NAMES = {FLAG_VWINDOW: "v_window", FLAG_RSLOTS: "r_slots",
 STAGES = ("swap", "loops", "wavefront", "delta", "complex", "enumerate",
           "pool")
 
-M_NORM, M_FIRST, M_DONE = 0, 1, 2
-INFE = 1 << 30
 TBIG = 1 << 28
-CLAMP = 1 << 20
 # the longest padded length the engine folds (the largest bucket of the
 # sweep).  What grows with N was audited up to it: the (depth, position)
 # sort keys of eval_torch._enclose and the hash sums are int64, the
 # Zobrist tables have N + 1 entries, flat gather indices are int64,
-# CLAMP / TBIG bound combination counts, which do not depend on N, and
-# the loop-size tables of energy/params.py reach 8,192 unpaired positions
+# CLAMP (engine/enumerate.py) and TBIG bound combination counts, which do
+# not depend on N, and the loop-size tables of energy/params.py reach
+# 8,192 unpaired positions
 MAX_N = 4096
 # the state keys that the JAX engine's state lacks: each lane's most
 # complex candidates in any step of its fold and the most live regions of
-# any new structure it considered, and the banked fold's
-PORT_KEYS = ("cplx_need", "out_cplx_need", "r_need", "out_r_need")
+# any new structure it considered, and the banked fold's; and each lane's
+# running totals of the enumeration windows it ran and of the steps in
+# which it enumerated (never reset)
+PORT_KEYS = ("cplx_need", "out_cplx_need", "r_need", "out_r_need",
+             "enum_windows", "enum_steps")
 
 
 def cplx_budget(base: int, K: int) -> int:
@@ -167,50 +174,8 @@ def _weights_integral(cfg):
 # helpers
 # ======================================================================
 
-def _rows(tab, idx):
-    """tab[b, idx[b, ...]] for tab [B, K, ...] and idx [B, ...]."""
-    b = torch.arange(tab.shape[0], device=tab.device)
-    return tab[b.view(-1, *([1] * (idx.dim() - 1))), idx.long()]
-
-
 def _bit(mask, flag):
     return mask.to(torch.int32) * flag
-
-
-def _hkey(h1, h2):
-    """Bijective int64 key of a (uint32, uint32) hash pair."""
-    return (h1 - (1 << 31)) * (1 << 32) + h2
-
-
-def _lexsort2(primary, secondary):
-    """Stable argsort by (primary, secondary); secondary in [0, 2^32)."""
-    return torch.sort(primary.long() * (1 << 32) + secondary, dim=-1,
-                      stable=True).indices
-
-
-def _first_occurrence(proc, key):
-    """proc[v] and v is the first processed slot holding its key (the
-    jnp.lexsort((v, ~proc, h1, h2)) dedup of fold_jax)."""
-    o1 = torch.sort((~proc).to(torch.uint8), dim=-1, stable=True).indices
-    o2 = torch.sort(key.gather(-1, o1), dim=-1, stable=True).indices
-    ordh = o1.gather(-1, o2)
-    ks = key.gather(-1, ordh)
-    first = torch.ones_like(proc)
-    first[..., 1:] = ks[..., 1:] != ks[..., :-1]
-    return torch.zeros_like(proc).scatter(-1, ordh, first) & proc
-
-
-def _member(keys, cnt, q):
-    """q[b, v] is among keys[b, :cnt[b]] (sorted-set membership; the
-    same answer as the all-pairs comparison of fold_jax, in O(S log S))."""
-    S = keys.shape[-1]
-    big = torch.iinfo(torch.int64).max
-    valid = torch.arange(S, device=keys.device) < cnt[:, None]
-    sk = torch.where(valid, keys, big).sort(-1).values
-    pos = torch.searchsorted(sk, q)
-    hit = sk.gather(-1, pos.clamp(max=S - 1)) == q
-    big_hit = (valid & (keys == big)).any(-1, keepdim=True)
-    return torch.where(q == big, big_hit, hit)
 
 
 # ======================================================================
@@ -419,7 +384,7 @@ class FoldEngine:
             active=self._t(active), rorder=self._t(rorder),
             seen_h1=z(B, S, d=i64), seen_h2=z(B, S, d=i64), seen_cnt=z(B),
             done=self._t(n == 0), cplx_dropped=z(B), enum_suspect=z(B),
-            cplx_need=z(B), r_need=z(B),
+            cplx_need=z(B), r_need=z(B), enum_windows=z(B), enum_steps=z(B),
             # continuous batching: per-lane shadow sequence, output buffer
             # for one finished fold, and bookkeeping
             seqid=self._t(sid), lane_steps=z(B),
@@ -582,7 +547,7 @@ class FoldEngine:
         counts its round there; ends its last stage unless the caller's
         stage was open (_advance's swap)."""
         cfg, dev = self.cfg, self.device
-        K, R, M, V, S = cfg.K, cfg.R, cfg.M, cfg.V, cfg.S
+        K, R = cfg.K, cfg.R
         B = self.B
         i32 = torch.int32
         pt = state["pt"]
@@ -622,163 +587,13 @@ class FoldEngine:
         Dd, Dn, Dh1, Dh2 = (x.gather(-1, ordm)
                             for x in (delta, nlive2, hd1, hd2))
 
-        # ---- windowed combination enumeration (fold_jax :1076-1359)
-        part = s_r > 0
-        sz = torch.where(part, s_r, 1).long()
-        prod_k = torch.ones((B, K), dtype=torch.int64, device=dev)
-        for r in range(R):
-            prod_k = (prod_k * sz[:, :, r]).clamp(max=CLAMP)
-        prod_k = torch.where(part.any(-1), prod_k, 0)
-        participating = prod_k > 0
-        Pk = prod_k.cumsum(-1)
-        first_start = Pk - prod_k
-        total = Pk[:, -1]
-
+        # ---- windowed combination enumeration (fold_jax :1076-1359):
+        # engine/enumerate.py, the kernel csrc/enumerate.cu on the card
         ph1, ph2 = self._hash(pt)
-        kk = torch.arange(K, device=dev)
-        vv = torch.arange(V, device=dev)
-        rr = torch.arange(R, device=dev)
-        z64 = lambda *s: torch.zeros(s, dtype=torch.int64, device=dev)
-        zb = lambda *s: torch.zeros(s, dtype=torch.bool, device=dev)
-        mode, base, nbr = z64(B), z64(B), z64(B)
-        kcap = torch.full((B,), K, dtype=torch.int64, device=dev)
-        # one scratch column at S takes the writes of non-new slots
-        s_h1 = F.pad(state["seen_h1"], (0, 1))
-        s_h2 = F.pad(state["seen_h2"], (0, 1))
-        s_cnt = state["seen_cnt"].long()
-        bm = dict(valid=zb(B, K), E=torch.full((B, K), INFE, dtype=torch.int64,
-                                               device=dev),
-                  tie=z64(B, K), kv=z64(B, K), idx=z64(B, K, R),
-                  on=zb(B, K, R), h1=z64(B, K), h2=z64(B, K))
-        # the most live regions of any new structure (more than R slots
-        # drop regions: flag r_slots), and seen-set overflow
-        rneed, suss = z64(B), zb(B)
-
-        def merge(bm, E, tie, extra):
-            """Merge candidate rows into the running top-K beam."""
-            E2 = torch.cat([bm["E"], E], 1)
-            tie2 = torch.cat([bm["tie"], tie], 1)
-            o = _lexsort2(E2, tie2)[:, :K]
-            out = dict(E=E2.gather(1, o), tie=tie2.gather(1, o))
-            for k, x in extra.items():
-                out[k] = _rows(torch.cat([bm[k], x], 1), o)
-            return out
-
-        # every window runs, as the JAX while_loop's bound allows: a lane
-        # that has finished (or never ran) is frozen by `run`, so a window
-        # with no lane left to run is a no-op on the state
-        for _ in range(cfg.W):
-            run = (mode == M_NORM) & ~done
-            g = base[:, None] + vv                                  # [B,V]
-            kv = torch.searchsorted(Pk, g, right=True)
-            kvc = kv.clamp(0, K - 1)
-            local = g - torch.where(kv > 0, Pk.gather(1, (kv - 1).clamp(0, K - 1)),
-                                    0)
-            v_ok = (g < total[:, None]) & ~done[:, None]
-
-            szk = _rows(sz, kvc)                                    # [B,V,R]
-            # stride_r = product of the sizes after r (last region varies
-            # fastest); the clamp is lossless since local < prod <= CLAMP
-            stride = torch.ones_like(szk)
-            acc = torch.ones_like(g)
-            for r in range(R - 1, -1, -1):
-                stride[..., r] = acc
-                acc = (acc * szk[..., r]).clamp(max=CLAMP)
-            idx_r = (local[..., None] // stride) % szk
-            on_r = _rows(part, kvc)
-
-            lin = ((kvc[..., None] * R + rr) * M + idx_r).reshape(B, -1)
-            pick = lambda D: D.reshape(B, -1).gather(1, lin).view(B, V, R)
-            d_delta, d_nlive, d_h1, d_h2 = pick(Dd), pick(Dn), pick(Dh1), pick(Dh2)
-
-            new_E = energy.gather(1, kvc) + torch.where(on_r, d_delta, 0).sum(-1)
-            nlive = torch.where(on_r, d_nlive, 0).sum(-1)
-            # combination hashes compose additively (mod 2^32)
-            h1 = (ph1.gather(1, kvc) + torch.where(on_r, d_h1, 0).sum(-1)) & MASK32
-            h2 = (ph2.gather(1, kvc) + torch.where(on_r, d_h2, 0).sum(-1)) & MASK32
-            key = _hkey(h1, h2)
-            in_seen = _member(_hkey(s_h1[:, :S], s_h2[:, :S]), s_cnt, key)
-
-            # pass 1: locate the max_branch cap within this window
-            new1 = v_ok & _first_occurrence(v_ok, key) & ~in_seen
-            nb1 = nbr[:, None] + new1.long().cumsum(-1)
-            capped_now = nb1[:, -1] >= cfg.max_branch
-            at_cap = new1 & (nb1 == cfg.max_branch)
-            cap_v = torch.where(capped_now, at_cap.to(i32).argmax(-1), V)
-            kcap_w = torch.where(
-                capped_now, kv.gather(1, cap_v.clamp(0, V - 1)[:, None])[:, 0],
-                kcap)
-
-            # pass 2: the processed set (prefix + post-cap first combos)
-            processed = v_ok & torch.where(
-                capped_now[:, None],
-                (vv <= cap_v[:, None]) | ((kv > kcap_w[:, None]) & (local == 0)),
-                True)
-            newmask = _first_occurrence(processed, key) & ~in_seen
-            rank = newmask.long().cumsum(-1) - 1
-            n_new = newmask.sum(-1)
-            rneed_w = torch.maximum(
-                rneed, torch.where(newmask, nlive, 0).amax(-1))
-
-            # insert into seen: only new slots are written
-            slot = s_cnt[:, None] + rank
-            slot = torch.where(newmask & (slot < S), slot, S)
-            s_h1_w = s_h1.scatter(1, slot, h1)
-            s_h2_w = s_h2.scatter(1, slot, h2)
-            s_cnt_new = s_cnt + n_new
-            suss_w = suss | (s_cnt_new > S - 1)
-
-            # window top-K of new structures -> running beam
-            wE = torch.where(newmask, new_E, INFE)
-            ord_w = torch.sort(wE, dim=-1, stable=True).indices[:, :K]
-            bm_w = merge(bm, wE.gather(1, ord_w), g.gather(1, ord_w), dict(
-                valid=newmask.gather(1, ord_w), kv=kvc.gather(1, ord_w),
-                idx=_rows(idx_r, ord_w), on=_rows(on_r, ord_w),
-                h1=h1.gather(1, ord_w), h2=h2.gather(1, ord_w)))
-
-            exhausted = base + V >= total
-            need_first = capped_now & (
-                participating & (kk > kcap_w[:, None])
-                & (first_start >= (base + V)[:, None])).any(-1)
-            mode_w = torch.where(
-                capped_now, torch.where(need_first, M_FIRST, M_DONE),
-                torch.where(exhausted, M_DONE, M_NORM))
-
-            # commit the lanes that ran this window
-            r1, r2, r3 = run[:, None], run[:, None, None], run
-            s_h1 = torch.where(r1, s_h1_w, s_h1)
-            s_h2 = torch.where(r1, s_h2_w, s_h2)
-            s_cnt = torch.where(r3, s_cnt_new.clamp(max=S - 1), s_cnt)
-            nbr = torch.where(r3, nbr + n_new, nbr)
-            kcap = torch.where(r3, kcap_w, kcap)
-            rneed = torch.where(r3, rneed_w, rneed)
-            suss = torch.where(r3, suss_w, suss)
-            bm = {k: torch.where(r2 if v.dim() == 3 else r1, bm_w[k], v)
-                  for k, v in bm.items()}
-            base = torch.where(r3 & (mode_w == M_NORM), base + V, base)
-            mode = torch.where(r3, mode_w, mode)
-
-        # ---- post-cap first combos beyond the last window, at [K] width
-        f_ok = (((mode == M_FIRST) & ~done)[:, None] & participating
-                & (kk > kcap[:, None]) & (first_start >= (base + V)[:, None]))
-        fE = energy + torch.where(part, Dd[..., 0], 0).sum(-1)
-        fh1 = (ph1 + torch.where(part, Dh1[..., 0], 0).sum(-1)) & MASK32
-        fh2 = (ph2 + torch.where(part, Dh2[..., 0], 0).sum(-1)) & MASK32
-        f_nlive = torch.where(part, Dn[..., 0], 0).sum(-1)
-        fkey = _hkey(fh1, fh2)
-        f_inseen = _member(_hkey(s_h1[:, :S], s_h2[:, :S]), s_cnt, fkey)
-        f_new = _first_occurrence(f_ok, fkey) & ~f_inseen
-        fslot = s_cnt[:, None] + f_new.long().cumsum(-1) - 1
-        fslot = torch.where(f_new & (fslot < S), fslot, S)
-        s_h1 = s_h1.scatter(1, fslot, fh1)
-        s_h2 = s_h2.scatter(1, fslot, fh2)
-        f_cnt = s_cnt + f_new.sum(-1)
-        suss = suss | (f_cnt > S - 1)
-        s_cnt = f_cnt.clamp(max=S - 1)
-        rneed = torch.maximum(rneed, torch.where(f_new, f_nlive, 0).amax(-1))
-        bm = merge(bm, torch.where(f_new, fE, INFE), first_start, dict(
-            valid=f_new, kv=kk.expand(B, K), idx=z64(B, K, R),
-            on=part, h1=fh1, h2=fh2))
+        e, bm = enumerate_combos(cfg, Dd, Dn, Dh1, Dh2, s_r, energy, ph1, ph2,
+                                 done, state["seen_h1"], state["seen_h2"],
+                                 state["seen_cnt"])
+        mode, rneed, suss = e["mode"], e["rneed"], e["suss"]
 
         # exactness flags, one bit per cause
         bits = (_bit((mode == M_NORM) & ~done, FLAG_VWINDOW)
@@ -786,6 +601,7 @@ class FoldEngine:
 
         clock.to("pool")
         # ---- pool (new before old on ties) and truncate to K
+        kk = torch.arange(K, device=dev)
         pool_E = torch.cat([torch.where(bm["valid"], bm["E"], INFE),
                             torch.where(active, energy, INFE)], 1)
         tie = torch.cat([bm["tie"], TBIG + kk.expand(B, K)], 1)
@@ -839,14 +655,17 @@ class FoldEngine:
             energy=torch.where(keep[:, None], beam_E, energy),
             active=torch.where(keep[:, None], beam_act, active),
             rorder=torch.where(keep[:, None, None], beam_ror, rorder),
-            seen_h1=s_h1[:, :S], seen_h2=s_h2[:, :S], seen_cnt=s_cnt.to(i32),
+            seen_h1=e["seen_h1"], seen_h2=e["seen_h2"],
+            seen_cnt=e["seen_cnt"].to(i32),
             done=done | unchanged,
             cplx_dropped=state["cplx_dropped"] + torch.where(keep, dropped, 0),
             cplx_need=torch.maximum(state["cplx_need"],
                                     torch.where(keep, need, 0)),
             r_need=torch.maximum(state["r_need"],
                                  torch.where(keep, rneed, 0).to(i32)),
-            enum_suspect=state["enum_suspect"] | torch.where(keep, bits, 0))
+            enum_suspect=state["enum_suspect"] | torch.where(keep, bits, 0),
+            enum_windows=state["enum_windows"] + e["windows"],
+            enum_steps=state["enum_steps"] + keep.to(i32))
         clock.round()
         if own:
             clock.to(None)
@@ -1025,7 +844,7 @@ class FoldEngine:
 
     _OUT_KEYS = ("out_pt", "out_E", "out_act", "out_n", "out_seqid",
                  "out_flag", "out_cplx_need", "out_r_need", "out_valid",
-                 "done", "seqid", "lane_steps")
+                 "done", "seqid", "lane_steps", "enum_windows", "enum_steps")
 
     def run_stream(self, seqs, G: int = 4, needs=None):
         """Continuous-batching fold over a sequence list.
@@ -1069,7 +888,10 @@ class FoldEngine:
         the step limit) of stream.lanes; the high-water counters
         stream.cplx_need_peak (the largest cplx_need of the folds
         yielded) and stream.cplx_budget (CPLX), stream.rslot_need_peak
-        (the largest r_need) and stream.rslots (R)."""
+        (the largest r_need) and stream.rslots (R); and after each read
+        stream.enum_windows and stream.enum_steps, what the lanes'
+        running totals enum_windows (enumeration windows run) and
+        enum_steps (steps that enumerated) rose by since the last read."""
         cfg, B = self.cfg, self.B
         LIM = 2 * cfg.max_steps
         nseq = len(seqs)
@@ -1115,11 +937,16 @@ class FoldEngine:
                                  self._t(n_new), self._t(sid_new))
         advance = self._advance_graphed if self.graphs else self._advance
         emitted = 0
+        # the lanes' enumeration totals at the last read
+        enum_seen = np.zeros((2, B), np.int64)
         if nseq:
             state = advance(state, G)
         while emitted < nseq:
             (o_pt, o_E, o_act, o_n, o_sid, o_flag, o_need, o_rneed, o_valid,
-             l_done, l_sid, l_steps) = self._fetch(state, self._OUT_KEYS)
+             l_done, l_sid, l_steps, l_windows, l_enums) = self._fetch(
+                 state, self._OUT_KEYS)
+            enum_now = np.stack([l_windows, l_enums]).astype(np.int64)
+            enum_new, enum_seen = (enum_now - enum_seen).sum(1), enum_now
             if obs.recording():
                 obs.high("stream.cplx_budget", cfg.CPLX)
                 obs.high("stream.rslots", cfg.R)
@@ -1128,6 +955,8 @@ class FoldEngine:
                 live = (l_sid >= 0) & ~l_done & (l_steps < LIM)
                 obs.count("stream.live_lanes", int(live.sum()))
                 obs.count("stream.lanes", B)
+                obs.count("stream.enum_windows", int(enum_new[0]))
+                obs.count("stream.enum_steps", int(enum_new[1]))
             fresh = np.flatnonzero(o_valid)
             if len(fresh):
                 load, codes_new, n_new, sid_new = loader(fresh, l_sid)

@@ -170,8 +170,7 @@ BUCKETS = (128, 256, 512, 1024, 2048, 4096)
 # of the peak (_stage_peaks); the profile phase reads the step's own stage
 # ranges
 STAGES = ("candidate_delta", "eval_pt", "analyze_pt", "_regions",
-          "_top_lags", "_member", "_first_occurrence", "_combo_pt",
-          "wavefront_tables")
+          "_top_lags", "enumerate_combos", "_combo_pt", "wavefront_tables")
 MiB = 2 ** 20
 
 
@@ -330,35 +329,37 @@ def _clone(x):
     return x
 
 
-def capture_delta_calls(run):
-    """The positional arguments (cfg, dp, codes, n, keys, pt, loops,
-    rorder, rpos, ws), tensors cloned, of every call of the delta stage's
-    wrapper (fold_torch.candidate_delta) while run() runs: one per fold
-    step run eagerly (a graph replay calls no wrapper)."""
+def capture_calls(stage, run):
+    """The positional arguments, tensors cloned, of every call of the
+    fold step's wrapper fold_torch.<stage> (candidate_delta: (cfg, dp,
+    codes, n, keys, pt, loops, rorder, rpos, ws); enumerate_combos: (cfg,
+    Dd, Dn, Dh1, Dh2, s_r, energy, ph1, ph2, done, seen_h1, seen_h2,
+    seen_cnt)) while run() runs: one per fold step run eagerly (a graph
+    replay calls no wrapper)."""
     from rafft_tpu_torch.engine import fold_torch as FT
-    real, calls = FT.candidate_delta, []
+    real, calls = getattr(FT, stage), []
 
     def spy(*args, **kw):
         calls.append(_clone(args))
         return real(*args, **kw)
 
-    FT.candidate_delta = spy
+    setattr(FT, stage, spy)
     try:
         run()
     finally:
-        FT.candidate_delta = real
+        setattr(FT, stage, real)
     return calls
 
 
-def delta_step_calls(eng, seqs, steps):
-    """capture_delta_calls over the first `steps` fold steps of `seqs`
-    (at most eng.B of them) on `eng`, run eagerly from the unfolded
-    root."""
+def step_calls(stage, eng, seqs, steps):
+    """capture_calls of `stage` over the first `steps` fold steps of
+    `seqs` (at most eng.B of them) on `eng`, run eagerly from the
+    unfolded root."""
     def run():
         st = eng.init_state(seqs[: eng.B])
         for _ in range(steps):
             st = eng.step(st)
-    return capture_delta_calls(run)
+    return capture_calls(stage, run)
 
 
 STEP_KEYS = ("pt", "energy", "active", "rorder", "seen_h1", "seen_h2",

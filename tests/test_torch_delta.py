@@ -24,8 +24,7 @@ from rafft_tpu_torch.engine.fold_torch import (EngineConfig, FoldEngine,
                                                fold_one_config)
 from rafft_tpu_torch.parallel.sweep import bucket_config
 from rafft_tpu_torch.tools.corpus import corpus, journal
-from rafft_tpu_torch.tools.measure import (capture_delta_calls,
-                                           delta_step_calls)
+from rafft_tpu_torch.tools.measure import capture_calls, step_calls
 
 # a small engine that folds quickly on the CPU
 CFG_CPU = EngineConfig(N=32, K=5, R=8, M=40, V=64, W=4, CPLX=64, S=256,
@@ -44,7 +43,7 @@ def _step_args(cfg, B, seqs, device, steps):
     """The engine and candidate_delta's arguments at each of the first
     `steps` fold steps of `seqs`, run eagerly."""
     eng = FoldEngine(cfg, B=B, device=device, graphs=False)
-    return eng, delta_step_calls(eng, seqs, steps)
+    return eng, step_calls("candidate_delta", eng, seqs, steps)
 
 
 def _many_children_args(device):
@@ -69,7 +68,7 @@ def _many_children_args(device):
     # the exterior loop, then the first 15 hairpins
     ror = np.array([-1] + [6 * u for u in range(cfg.R - 1)], np.int32)
     st["rorder"] = torch.as_tensor(ror[None, None], device=eng.device)
-    return capture_delta_calls(lambda: eng.candidates(st))[0]
+    return capture_calls("candidate_delta", lambda: eng.candidates(st))[0]
 
 
 def _same(got, want, what):

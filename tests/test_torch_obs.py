@@ -73,7 +73,8 @@ def test_nothing_is_recorded_without_a_profiler():
     assert snap["stage_ms"] == {}
     assert set(snap["process"]) == {"wavefront.launches",
                                     "wavefront.captured", "delta.launches",
-                                    "delta.captured", "fold.refolds"}
+                                    "delta.captured", "enumerate.launches",
+                                    "enumerate.captured", "fold.refolds"}
 
 
 def test_run_stream_records_every_stage_once_per_round(monkeypatch):
